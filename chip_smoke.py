@@ -1,0 +1,329 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``marl_dmfb_tpu_torch``) on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its seconds:
+
+0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
+1. build the env-step kernel (``csrc/dmfb_step.cu``) with nvcc for sm_90a
+   and print ptxas's register and spill lines;
+2. hold the kernel against its plain PyTorch version on the card (integer,
+   bool and usage outputs bitwise equal, rewards within 1e-5) at three
+   shapes, three chained steps each;
+3. drive the evaluate entry point (DMFB 10x10, 4 droplets, fov 9, CRNN at
+   the evaluation width, seeded random weights) and check that the env step
+   went through the kernel once per step (T = 40 launches); then run a small
+   greedy rollout on the card and on the CPU from the same chips and draws,
+   which must give the same episodes;
+4. time one epsilon-greedy actor rollout at B = 16384 chips, checking that
+   it too launched the kernel once per step, and the kernel against its
+   plain version (CUDA events around a CUDA graph of 50 calls).
+
+The line before the last is a JSON object with the kernel's numbers; the
+last is ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
+exit code is non-zero and no result line is printed.  Exits non-zero at once
+where CUDA is unavailable.  Writes nothing but the kernel build under
+``build/``.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+# NVIDIA H100 SXM data sheet: the HBM3 rate, and float32 outside the tensor
+# cores as the rate of the kernel's scalar integer work.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_SCALAR_OPS_PER_S = 67e12
+KERNEL_B = 16384           # actor batch of the timing phase
+TIMED_LAUNCHES = 50
+REWARD_ATOL = 1e-5         # float32 sums of up to 16 rewards, other order
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def device_ms(calls, iters=TIMED_LAUNCHES) -> float:
+    """Device time per call: ``iters`` calls captured in one CUDA graph and
+    timed with CUDA events around its replay, so that host overhead and the
+    launch queue's depth play no part.  ``calls`` rotate, each on its own
+    inputs, so that a call does not find its inputs in the 50 MB L2 cache
+    from the calls before it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm up off the default stream
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def random_states(tdmfb, params, batch, generator):
+    """Chips from ``init`` with degraded electrodes in [0.5, 1), a quarter
+    of the droplets on their goals and step counts spread over the episode,
+    so that failed moves, stalls and the step limit all occur."""
+    s = tdmfb.init(params, batch, generator, "cuda")
+    n = params.n_droplets
+    at_goal = torch.rand((batch, n, 1), generator=generator,
+                         device="cuda") < 0.25
+    goal = torch.where(at_goal, s.pos, s.goal)
+    return s._replace(
+        goal=goal,
+        dist=(s.pos - goal).abs().sum(-1, dtype=torch.int32),
+        health=torch.rand(s.health.shape, generator=generator,
+                          device="cuda") * 0.5 + 0.5,
+        step_count=torch.randint(0, params.max_step, (batch,),
+                                 generator=generator, device="cuda",
+                                 dtype=torch.int32),
+    )
+
+
+def step_inputs(params, batch, generator):
+    n = params.n_droplets
+    a = torch.randint(0, 5, (batch, n), generator=generator, device="cuda",
+                      dtype=torch.int32)
+    u = torch.rand((batch, n), generator=generator, device="cuda")
+    return a, u
+
+
+def compare_kernel(tdmfb, dmfb_step, params, batch, generator):
+    """Three chained steps, kernel vs plain; returns the largest absolute
+    difference over all outputs."""
+    s = random_states(tdmfb, params, batch, generator)
+    worst = 0.0
+    for _ in range(3):
+        a, u = step_inputs(params, batch, generator)
+        sk, ok = dmfb_step.step_batch(params, s, a, u)
+        sp, op = tdmfb.step_core(params, s, a, u)
+        torch.cuda.synchronize()
+        for name, x, y in (
+                [(f, getattr(sk, f), getattr(sp, f)) for f in
+                 ("pos", "dist", "usage", "step_count", "cum_constraints")]
+                + [(f, getattr(ok, f), getattr(op, f)) for f in
+                   ("obs", "dones", "terminated", "constraints", "success",
+                    "rewards", "team_reward")]):
+            diff = (x.double() - y.double()).abs().max().item()
+            worst = max(worst, diff)
+            if name in ("rewards", "team_reward"):
+                if not diff <= REWARD_ATOL:
+                    raise AssertionError(f"{name} differs by {diff}")
+            elif not torch.equal(x, y):
+                raise AssertionError(
+                    f"{name} differs (max |diff| {diff}, "
+                    f"{int((x != y).sum())} elements)")
+        s = sk
+    return worst
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from marl_dmfb_tpu_torch import evaluate
+    from marl_dmfb_tpu_torch.config import get_evaluate_args
+    from marl_dmfb_tpu_torch.config import make_env_from_args
+    from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
+    from marl_dmfb_tpu_torch.models.networks import (build_agent_net,
+                                                     init_params)
+    from marl_dmfb_tpu_torch.ops import _build, dmfb_step
+    from marl_dmfb_tpu_torch.rollout import RolloutNoise, make_rollout
+
+    t_all = time.perf_counter()
+
+    # --- 0: the card ---
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    log(smi)
+    kind = torch.cuda.get_device_name(0)
+    log(f"phase 0: torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {kind} x{torch.cuda.device_count()} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.set_device(0)
+
+    # --- 1: build ---
+    t0 = time.perf_counter()
+    dmfb_step.kernel_library()
+    built = _build.build("dmfb_step")
+    log(f"phase 1: built {os.path.relpath(built.path, ROOT)} in "
+        f"{built.seconds:.2f} s of nvcc")
+    for line in built.log.splitlines():
+        if any(w in line for w in ("registers", "spill", "Compiling entry")):
+            log("  ptxas: " + line.strip())
+    log(f"phase 1: {time.perf_counter() - t0:.2f} s")
+
+    # --- 2: kernel vs plain version ---
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(2024)
+    max_err = 0.0
+    for width, n, blocks, batch in ((10, 4, 0, KERNEL_B), (20, 4, 2, 1024),
+                                    (20, 10, 0, 1024)):
+        p = tdmfb.DMFBParams(width=width, length=width, n_droplets=n,
+                             n_blocks=blocks, fov=9)
+        err = compare_kernel(tdmfb, dmfb_step, p, batch, g)
+        max_err = max(max_err, err)
+        log(f"phase 2: {width}x{width}, {n} droplets, {blocks} blocks, "
+            f"B={batch}: kernel == plain over 3 steps (max |diff| {err:.3g})")
+    log(f"phase 2: {time.perf_counter() - t0:.2f} s")
+
+    # --- 3: the evaluate entry point, through the kernel ---
+    t0 = time.perf_counter()
+    argv = ["dmfb", "--drop_num=4", "--fov=9", "--evaluate_task=100"]
+    dmfb_step.launches = 0
+    m = evaluate.main(argv)
+    launches = dmfb_step.launches
+    args = get_evaluate_args(argv)
+    env = make_env_from_args(args)
+    T = env.episode_limit
+    if launches != T:
+        raise AssertionError(f"evaluate launched the kernel {launches} "
+                             f"times, expected {T} (one per step)")
+    if not (all(math.isfinite(v) for v in m.values())
+            and 0 < m["steps"] <= T and 0.0 <= m["success_rate"] <= 1.0):
+        raise AssertionError(f"evaluate returned {m}")
+    log(f"phase 3: evaluate: success {m['success_rate']}, steps "
+        f"{m['steps']}, reward {m['reward']:.4f}, kernel launches "
+        f"{launches} (T = {T}); conv width {args.hyper_hidden_dim}")
+
+    # the same greedy rollout on the card (kernel) and the CPU (plain)
+    args.update_env_info(env.env_info())
+    net = init_params(build_agent_net(args),
+                      torch.Generator().manual_seed(args.seed)).eval()
+    gc = torch.Generator(device="cuda").manual_seed(7)
+    small = env.init(64, gc, "cuda")
+    reset = env.reset(small, gc)
+    noise = RolloutNoise(None, None,
+                         torch.rand((T, 64, env.n_agents), generator=gc,
+                                    device="cuda"))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        to = lambda x: x.to(dev)
+        chips = type(reset)(*map(to, reset))
+        denv = env._replace(reset=lambda s, gen: chips)
+        roll = make_rollout(denv, net.to(dev), args.rnn_hidden_dim)
+        res[dev] = roll(chips, None, 0.0, 0.0, 0.0, greedy=True,
+                        noise=RolloutNoise(None, None,
+                                           noise.env_uniforms.to(dev)))
+    same = (res["cuda"].episodes["o_ext"].cpu()
+            == res["cpu"].episodes["o_ext"]).flatten(1).all(1)
+    same &= res["cuda"].success.cpu() == res["cpu"].success
+    log(f"phase 3: greedy rollout of 64 chips, card vs CPU: "
+        f"{int(same.sum())}/64 episodes identical")
+    if not bool(same.all()):
+        raise AssertionError("the card's rollout departs from the CPU's")
+    log(f"phase 3: {time.perf_counter() - t0:.2f} s")
+
+    # --- 4: epsilon-greedy actor rollout at B = 16384 + kernel timing ---
+    t0 = time.perf_counter()
+    net = net.to("cuda")
+    ga = torch.Generator(device="cuda").manual_seed(4)
+    chips = env.init(KERNEL_B, ga, "cuda")
+    rollout = make_rollout(env, net, args.rnn_hidden_dim)
+    anneal = (args.epsilon - args.min_epsilon) / args.anneal_steps * KERNEL_B
+    warm = rollout(chips, ga, 1.0, anneal, args.min_epsilon)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dmfb_step.launches = 0
+    t1 = time.perf_counter()
+    res = rollout(warm.env_states, ga, 1.0, anneal, args.min_epsilon)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches_actor = dmfb_step.launches
+    if launches_actor != T:
+        raise AssertionError(f"the actor rollout launched the kernel "
+                             f"{launches_actor} times, expected {T}")
+    peak = torch.cuda.max_memory_allocated()
+    executed = int((~res.episodes["padded"]).sum())
+    log(f"phase 4: [{smi}] epsilon-greedy rollout, B={KERNEL_B}, T={T}: "
+        f"{dt * 1e3:.1f} ms, {KERNEL_B * T / dt:.0f} lockstep env-steps/s, "
+        f"{executed / dt:.0f} executed env-steps/s, final epsilon "
+        f"{float(res.epsilon):.4f}, peak memory {peak / 2 ** 20:.1f} MiB, "
+        f"kernel launches {launches_actor} (T = {T})")
+
+    p = env.params
+    sets = [(random_states(tdmfb, p, KERNEL_B, ga),
+             *step_inputs(p, KERNEL_B, ga)) for _ in range(4)]
+    kernel_ms = device_ms([
+        lambda x=x: dmfb_step.step_batch(p, *x) for x in sets])
+    plain_ms = device_ms([
+        lambda x=x: tdmfb.step_core(p, *x) for x in sets])
+    s, a, u = sets[0]
+    s2, o2 = dmfb_step.step_batch(p, s, a, u)
+    # every tensor the step reads or writes whole, once; of the health
+    # board only the N cells under the droplets, each a 32-byte sector
+    n = p.n_droplets
+    health_bytes = KERNEL_B * min(s.health[0].nbytes, n * 32)
+    n_bytes = (sum(t.nbytes for t in (s.pos, s.dist, s.goal, s.usage,
+                                      s.block_mask, a, u, s.step_count,
+                                      s.cum_constraints))
+               + health_bytes
+               + sum(t.nbytes for t in (s2.pos, s2.dist, s2.usage,
+                                        s2.step_count, s2.cum_constraints))
+               + sum(t.nbytes for t in o2))
+    # integer operations: 4 per distance test (2 kinds per droplet pair),
+    # one per observation byte and per usage cell
+    n_ops = KERNEL_B * (8 * n * (n - 1) + n * p.obs_dim
+                        + p.width * p.length)
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_SCALAR_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"phase 4: [{smi}] dmfb_step at B={KERNEL_B}: kernel "
+        f"{kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+        f"{bound_ms * 1e3:.2f} us ({n_bytes} bytes, {n_ops} ops)")
+    log(f"phase 4: {time.perf_counter() - t0:.2f} s")
+    log(f"total: {time.perf_counter() - t_all:.2f} s")
+
+    log(smi)
+    log(json.dumps({"kernels": [{
+        "name": "dmfb_step",
+        "route": "cuda",
+        "source": "marl_dmfb_tpu_torch/csrc/dmfb_step.cu",
+        "replaces": "marl_dmfb_tpu/ops/dmfb_step_pallas.py:44",
+        "launches": launches,
+        "launches_actor": launches_actor,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,96 @@
+"""Evaluate the agent on fresh random tasks (JAX ``evaluate.py:94-157``).
+
+Usage::
+
+    python -m marl_dmfb_tpu_torch.evaluate dmfb --drop_num=4 --fov=9 \\
+        --evaluate_task=100 [--boards=10,20,50] [--device=cpu]
+
+Runs on the GPU unless ``--device cpu`` is given, and raises when CUDA is
+asked for and absent.  The port has no checkpoints yet, so the weights are
+random, drawn from ``--seed``; ``--load_model``, ``--show`` and
+``--show_save`` raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import torch
+
+from marl_dmfb_tpu_torch.config import get_evaluate_args, make_env_from_args
+from marl_dmfb_tpu_torch.trainer import Trainer
+
+
+def select_device(name: str) -> torch.device:
+    """The torch device for ``--device``; raises instead of falling back
+    when CUDA is asked for and absent."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: CUDA is not available here; pass "
+            "--device cpu to run the plain versions on the CPU")
+    # The JAX reference computes in full float32; TF32 convolutions and
+    # matmuls (cuDNN's default for convolutions) would change greedy argmax
+    # decisions.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return device
+
+
+def evaluate_one(args) -> dict:
+    """Evaluate one board configuration; returns the metric dict."""
+    if args.load_model:
+        raise NotImplementedError(
+            "--load_model: the port has no checkpoint format yet; see "
+            "ROADMAP.md (Orbax -> npz exporter)")
+    if args.show or args.show_save:
+        raise NotImplementedError(
+            "--show/--show_save rendering is not ported yet; see ROADMAP.md")
+    env = make_env_from_args(args)
+    return Trainer(env, args, eval_only=True).evaluate()
+
+
+def main(argv=None):
+    """CLI entry; returns the metric dict (a list of ``(size, metrics)``
+    with ``--boards``)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # --boards=10,20,50: the zero-shot generalization sweep in one command
+    boards = None
+    for a in list(argv):
+        if a.startswith("--boards"):
+            argv.remove(a)
+            boards = [int(b) for b in
+                      (a.split("=", 1)[1] if "=" in a else "").split(",")
+                      if b]
+    args = get_evaluate_args(argv)
+    select_device(args.device)
+    start = time.time()
+    if boards:
+        rows = []
+        for size in boards:
+            a = get_evaluate_args(argv)
+            a.width = a.length = size
+            a.apply_env_defaults()
+            m = evaluate_one(a)
+            rows.append((size, m))
+            print(f"{size}x{size}: success {m['success_rate']:.2f}, "
+                  f"steps {m['steps']:.1f}, reward {m['reward']:.2f}",
+                  flush=True)
+        print("time:", time.time() - start)
+        print(f"{'board':>8} {'success':>8} {'steps':>7} {'reward':>8}")
+        for size, m in rows:
+            print(f"{size:>5}x{size:<3} {m['success_rate']:>8.2f} "
+                  f"{m['steps']:>7.1f} {m['reward']:>8.2f}")
+        return rows
+    m = evaluate_one(args)
+    print("time:", time.time() - start)
+    print("The average total_rewards of {} is  {}".format(args.alg,
+                                                         m["reward"]))
+    print("The average total_steps is: {}".format(m["steps"]))
+    print("The successful rate is: {}".format(m["success_rate"]))
+    return m
+
+
+if __name__ == "__main__":
+    main()

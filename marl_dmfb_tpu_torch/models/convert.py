@@ -1,0 +1,50 @@
+"""Carry the JAX package's agent weights across to the port.
+
+:func:`from_flax_params` takes the Flax parameter tree of an agent net as
+plain numpy arrays (as ``marl_dmfb_tpu.checkpoint.restore`` returns them, or
+``jax.tree.map(np.asarray, params)``), so the port never imports flax.
+Layouts: a conv kernel is HWIO in Flax and OIHW in torch; a dense kernel is
+(in, out) in Flax and (out, in) in torch; the GRU's ``wi/wh/bi/bh`` are
+torch's ``weight_ih/weight_hh/bias_ih/bias_hh`` with the kernels transposed
+(the gate order r, z, n is the same).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def _t(x) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, np.float32))   # a contiguous copy
+
+
+def _dense(prefix: str, p: Mapping) -> dict:
+    return {f"{prefix}.weight": _t(np.asarray(p["w"]).T),
+            f"{prefix}.bias": _t(p["b"])}
+
+
+def from_flax_params(tree: Mapping) -> dict:
+    """Flax agent params (``{"conv1": {"w", "b"}, ..., "gru": {...}}``, or
+    the same under a top-level ``"params"``) -> a torch ``state_dict`` for
+    :class:`CRNNAgent` or :class:`RNNAgent`."""
+    if "params" in tree:
+        tree = tree["params"]
+    sd = {}
+    convs = sorted((k for k in tree if k.startswith("conv")),
+                   key=lambda k: int(k[4:]))
+    for i, name in enumerate(convs):
+        sd[f"convs.{i}.weight"] = _t(
+            np.asarray(tree[name]["w"]).transpose(3, 2, 0, 1))
+        sd[f"convs.{i}.bias"] = _t(tree[name]["b"])
+    for name in ("mlp1", "fc1", "fc2"):
+        if name in tree:
+            sd.update(_dense(name, tree[name]))
+    g = tree["gru"]
+    sd["gru.weight_ih"] = _t(np.asarray(g["wi"]).T)
+    sd["gru.weight_hh"] = _t(np.asarray(g["wh"]).T)
+    sd["gru.bias_ih"] = _t(g["bi"])
+    sd["gru.bias_hh"] = _t(g["bh"])
+    return sd

@@ -1,0 +1,155 @@
+"""Batched episode rollout: the actor loop (obs -> net -> action -> env
+step) over T steps for B chips (JAX ``rollout.py:37-271``).
+
+The JAX package fused the loop into one ``lax.scan``; here it is a Python
+loop over T whose env step is the hand kernel on CUDA.  Episode semantics
+are the JAX package's:
+
+* episodes run to ``terminated`` and are then frozen; their remaining
+  steps are stored zeroed with ``padded=1`` and ``terminated=1``;
+* the team reward is the mean over agents; ``terminated`` is all agents;
+* epsilon anneals by ``anneal_per_step * live_frac`` per step, so ended
+  episodes stop consuming schedule, and the final value is returned;
+* failed episodes count as ``episode_limit`` steps;
+* ``o_ext`` holds T+1 observations (o_0 .. o_T).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from marl_dmfb_tpu_torch.envs.registry import Env
+
+
+class RolloutResult(NamedTuple):
+    episodes: dict              # each (B, T, ...) — replay-buffer layout
+    env_states: object          # batched env state (post-episode)
+    epsilon: torch.Tensor       # () f32 — annealed epsilon
+    # per-episode metrics, each (B,)
+    reward: torch.Tensor
+    steps: torch.Tensor
+    constraints: torch.Tensor
+    success: torch.Tensor
+
+
+class RolloutNoise(NamedTuple):
+    """Pre-drawn randomness for a rollout, each (T, B, N); ``rand_a`` and
+    ``explore_u`` are unused (may be None) in a greedy rollout."""
+
+    rand_a: Optional[torch.Tensor]     # int32 in [0, n_actions)
+    explore_u: Optional[torch.Tensor]  # f32 in [0, 1): explore iff < eps
+    env_uniforms: torch.Tensor         # f32 in [0, 1): move-success draws
+
+
+def _tree_where(cond_b: torch.Tensor, a, b):
+    def sel(x, y):
+        if x is y:   # a field the step left as it was
+            return x
+        return torch.where(cond_b.view(-1, *([1] * (x.dim() - 1))), x, y)
+
+    return type(a)(*(sel(x, y) for x, y in zip(a, b)))
+
+
+def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
+                 with_state: bool = False):
+    """Build ``rollout(env_states, generator, epsilon, anneal_per_step,
+    min_epsilon, greedy=False, noise=None) -> RolloutResult``.
+
+    Randomness comes from ``generator`` (on the states' device) unless
+    ``noise`` gives it, which lets tests replay the JAX package's draws."""
+    if with_state:
+        raise NotImplementedError(
+            "the QMIX global state is not ported yet; see ROADMAP.md")
+    N, A, T = env.n_agents, env.n_actions, env.episode_limit
+
+    def net_forward(obs, last_oh, h):
+        B = obs.shape[0]
+        x = torch.cat([obs.float(), last_oh], dim=-1).reshape(B * N, -1)
+        q, h2 = net(x, h.reshape(B * N, rnn_hidden))
+        return q.view(B, N, A), h2.view(B, N, rnn_hidden)
+
+    @torch.no_grad()
+    def rollout(env_states, generator: torch.Generator, epsilon,
+                anneal_per_step, min_epsilon, greedy: bool = False,
+                noise: Optional[RolloutNoise] = None) -> RolloutResult:
+        states = env.reset(env_states, generator)
+        obs0 = env.observe(states)
+        B, device = obs0.shape[0], obs0.device
+        f32 = dict(dtype=torch.float32, device=device)
+        eps = torch.tensor(epsilon, **f32)
+        anneal = torch.tensor(anneal_per_step, **f32)
+        min_eps = torch.tensor(min_epsilon, **f32)
+
+        obs = obs0
+        last = torch.zeros((B, N, A), **f32)
+        h = torch.zeros((B, N, rnn_hidden), **f32)
+        live = torch.ones((B,), dtype=torch.bool, device=device)
+        trans = {k: [] for k in ("o_next", "u", "r", "padded", "terminated")}
+        metrics = {k: [] for k in ("reward", "live", "constraints", "success")}
+        for t in range(T):
+            q, h = net_forward(obs, last, h)
+            a = q.argmax(dim=-1).to(torch.int32)
+            if not greedy:
+                if noise is None:
+                    rand_a = torch.randint(0, A, (B, N), generator=generator,
+                                           device=device, dtype=torch.int32)
+                    explore_u = torch.rand((B, N), generator=generator,
+                                           device=device)
+                else:
+                    rand_a, explore_u = noise.rand_a[t], noise.explore_u[t]
+                a = torch.where(explore_u < eps, rand_a, a)
+            uniforms = (torch.rand((B, N), generator=generator, device=device)
+                        if noise is None else noise.env_uniforms[t])
+            new_states, out = env.step_core(states, a, uniforms)
+            states = _tree_where(live, new_states, states)
+
+            lv3 = live[:, None, None]
+            trans["o_next"].append(torch.where(lv3, out.obs, 0))
+            trans["u"].append(torch.where(lv3, a[..., None], 0))
+            trans["r"].append(torch.where(live, out.team_reward, 0.0)[:, None])
+            trans["padded"].append((~live)[:, None])
+            trans["terminated"].append(
+                torch.where(live, out.terminated, True)[:, None])
+            metrics["reward"].append(torch.where(live, out.team_reward, 0.0))
+            metrics["live"].append(live.int())
+            metrics["constraints"].append(torch.where(live, out.constraints, 0))
+            metrics["success"].append(torch.where(live, out.success, 0))
+            if not greedy:
+                eps = torch.maximum(
+                    min_eps, eps - anneal * live.float().mean())
+            # obs/last-action carries of ended episodes need no freezing:
+            # everything stored from them is masked by `live`
+            live = live & ~out.terminated
+            obs = out.obs
+            last = F.one_hot(a.long(), A).float()
+
+        episodes = {k: torch.stack(v, dim=1) for k, v in trans.items()}
+        episodes["o_ext"] = torch.cat(
+            [obs0[:, None], episodes.pop("o_next")], dim=1)
+        m = {k: torch.stack(v) for k, v in metrics.items()}   # (T, B)
+        success = (m["success"].sum(dim=0) > 0).int()
+        steps = torch.where(success == 1, m["live"].sum(dim=0), T)
+        return RolloutResult(
+            episodes=episodes,
+            env_states=states,
+            epsilon=eps,
+            reward=m["reward"].sum(dim=0),
+            steps=steps.int(),
+            constraints=m["constraints"].sum(dim=0).int(),
+            success=success,
+        )
+
+    return rollout
+
+
+def summarize_eval(result: RolloutResult) -> dict:
+    """Average the per-episode metrics (reference ``Evaluator.evaluate``)."""
+    return {
+        "reward": float(result.reward.mean()),
+        "steps": float(result.steps.float().mean()),
+        "constraints": float(result.constraints.float().mean()),
+        "success_rate": float(result.success.float().mean()),
+    }

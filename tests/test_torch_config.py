@@ -1,0 +1,61 @@
+"""The port's configuration against the JAX package's: the hyperparameter
+dict equals the YAML files it replaces, and the evaluation CLI parses to the
+same values; plus the options this slice does not port."""
+
+import os
+
+import pytest
+import yaml
+
+from marl_dmfb_tpu import config as jconfig
+from marl_dmfb_tpu_torch import config as tconfig
+from marl_dmfb_tpu_torch.envs import make_env
+from marl_dmfb_tpu_torch.trainer import Trainer
+
+YAML_DIR = os.path.join(os.path.dirname(jconfig.__file__), "data", "dmfb")
+
+
+@pytest.mark.parametrize("drops", [2, 3, 4, 5, 10])
+def test_hparams_equal_yaml(drops):
+    with open(os.path.join(YAML_DIR, f"{drops}d.yaml")) as f:
+        netdata, traindata = yaml.safe_load_all(f.read())
+    want_net, want_train = tconfig.DMFB_HPARAMS[drops]
+    assert want_net == netdata
+    assert want_train == traindata
+
+
+def test_every_yaml_is_carried():
+    files = {int(n[:-6]) for n in os.listdir(YAML_DIR) if n.endswith("d.yaml")}
+    assert files == set(tconfig.DMFB_HPARAMS)
+
+
+@pytest.mark.parametrize("argv", [
+    ["dmfb", "--drop_num=4", "--fov=9", "--evaluate_task=100"],
+    ["dmfb", "--drop_num=2", "--chip_size=20", "--block_num=2"],
+    ["dmfb", "-d", "10", "-w", "30", "-l", "20", "--fov", "7", "--stall"],
+])
+def test_evaluate_args_match_jax(argv):
+    j = jconfig.get_evaluate_args(argv)
+    t = tconfig.get_evaluate_args(argv)
+    for field in tconfig.Args.__dataclass_fields__:
+        if field in ("device", "load_model"):
+            continue
+        assert getattr(t, field) == getattr(j, field), field
+    assert t.hyper_hidden_dim == 24   # evaluation loads the 4d parameters
+    assert not t.load_model           # the port has no checkpoints yet
+    je, te = jconfig.make_env_from_args(j), tconfig.make_env_from_args(t)
+    assert je.env_info() == te.env_info()
+
+
+def test_unported_envs_and_modes_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tconfig.get_evaluate_args(["meda"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_env("dmfb", version="0.1")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_env("meda")
+    with pytest.raises(ValueError):
+        make_env("dmfb", version="0.2")
+    args = tconfig.get_evaluate_args(["dmfb", "--device=cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(tconfig.make_env_from_args(args), args, eval_only=False)

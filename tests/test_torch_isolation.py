@@ -1,0 +1,85 @@
+"""The port stands alone: ``marl_dmfb_tpu_torch``, ``chip_smoke.py`` and
+``tools/profile_torch_rollout.py`` import nothing of JAX, its libraries, YAML, matplotlib or the JAX package
+(the GPU machine has none of them), and the entry point runs on the card
+unless told otherwise, raising where there is none."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "yaml",
+             "matplotlib", "marl_dmfb_tpu"}
+PORT_FILES = sorted((ROOT / "marl_dmfb_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_rollout.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax(path):
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_sees_the_whole_port():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for want in ("chip_smoke.py", "marl_dmfb_tpu_torch/envs/dmfb.py",
+                 "marl_dmfb_tpu_torch/ops/dmfb_step.py",
+                 "marl_dmfb_tpu_torch/evaluate.py"):
+        assert want in names
+
+
+def test_scan_catches_a_forbidden_import(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import os\nfrom marl_dmfb_tpu.envs import dmfb\n"
+                 "def g():\n    import jax.numpy as jnp\n")
+    assert {"marl_dmfb_tpu", "jax"} <= set(_imported_roots(f))
+
+
+def test_evaluate_defaults_to_cuda_and_raises_without_it():
+    from marl_dmfb_tpu_torch import evaluate
+    from marl_dmfb_tpu_torch.config import get_evaluate_args
+
+    assert get_evaluate_args(["dmfb"]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate.main(["dmfb", "--drop_num=4", "--fov=9",
+                       "--evaluate_task=2"])
+
+
+def test_evaluate_runs_on_cpu_when_asked():
+    from marl_dmfb_tpu_torch import evaluate
+
+    m = evaluate.main(["dmfb", "--drop_num=4", "--fov=9",
+                       "--evaluate_task=3", "--device", "cpu"])
+    assert set(m) == {"reward", "steps", "constraints", "success_rate"}
+    assert 0 < m["steps"] <= 40 and 0.0 <= m["success_rate"] <= 1.0
+    rows = evaluate.main(["dmfb", "--boards=10,12", "--evaluate_task=2",
+                          "--device=cpu"])
+    assert [size for size, _ in rows] == [10, 12]
+
+
+@pytest.mark.parametrize("flag", ["--load_model", "--show", "--show_save"])
+def test_unported_evaluate_options_raise(flag):
+    from marl_dmfb_tpu_torch import evaluate
+
+    with pytest.raises(NotImplementedError):
+        evaluate.main(["dmfb", "--evaluate_task=2", "--device=cpu", flag])

@@ -1,0 +1,77 @@
+"""Helpers shared by the ``test_torch_*`` files: build batched DMFB states
+with the JAX package, carry them to the PyTorch port as numpy arrays, and
+compare the two packages' outputs."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import marl_dmfb_tpu.envs.dmfb as jdmfb
+from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
+
+# integer/bool fields held bitwise equal; float fields within REWARD_ATOL
+STATE_EXACT = ("pos", "start", "goal", "dist", "block_mask", "usage",
+               "step_count", "cum_constraints")
+OUT_EXACT = ("obs", "dones", "terminated", "constraints", "success")
+REWARD_ATOL = 1e-5   # float32 sums taken in another order
+
+# pytest-xdist runs several workers on the same cores, and torch's intra-op
+# pool in each would oversubscribe them: the port's many small CPU ops then
+# spend most of their time waiting for threads
+torch.set_num_threads(1)
+
+
+def params_pair(**kw):
+    return jdmfb.DMFBParams(**kw), tdmfb.DMFBParams(**kw)
+
+
+def to_torch_state(jstate, device="cpu") -> tdmfb.DMFBState:
+    """A batched JAX DMFBState as the port's (the PRNG key is dropped)."""
+    return tdmfb.DMFBState(**{
+        f: torch.from_numpy(np.array(getattr(jstate, f))).to(device)
+        for f in tdmfb.DMFBState._fields
+    })
+
+
+def jax_states(jparams, batch, seed, rng=None, degrade=True, at_goal=0.25):
+    """B JAX states from ``init``, with degraded health in [0.5, 1) and a
+    share ``at_goal`` of droplets placed on their goal, so that move failures
+    and the stall/done branches run."""
+    states = jax.jit(jax.vmap(functools.partial(jdmfb.init, jparams)))(
+        jax.random.split(jax.random.PRNGKey(seed), batch))
+    rng = np.random.RandomState(seed) if rng is None else rng
+    W, L, N = jparams.width, jparams.length, jparams.n_droplets
+    if degrade:
+        states = states._replace(health=jnp.asarray(
+            rng.rand(batch, W, L) * 0.5 + 0.5, jnp.float32))
+    if at_goal:
+        pos = np.array(states.pos)
+        goal = np.array(states.goal)
+        sel = rng.rand(batch, N) < at_goal
+        goal = np.where(sel[..., None], pos, goal)
+        states = states._replace(
+            goal=jnp.asarray(goal),
+            dist=jnp.asarray(np.abs(pos - goal).sum(-1).astype(np.int32)))
+    return states
+
+
+def jax_step_fn(jparams):
+    return jax.jit(jax.vmap(functools.partial(jdmfb.step_core, jparams)))
+
+
+def assert_step_equal(jstate, jout, tstate, tout, where=""):
+    for f in STATE_EXACT:
+        np.testing.assert_array_equal(
+            np.array(getattr(jstate, f)), getattr(tstate, f).cpu().numpy(),
+            err_msg=f"state.{f} {where}")
+    for f in OUT_EXACT:
+        np.testing.assert_array_equal(
+            np.array(getattr(jout, f)), getattr(tout, f).cpu().numpy(),
+            err_msg=f"out.{f} {where}")
+    for f in ("rewards", "team_reward"):
+        np.testing.assert_allclose(
+            np.array(getattr(jout, f)), getattr(tout, f).cpu().numpy(),
+            rtol=0, atol=REWARD_ATOL, err_msg=f"out.{f} {where}")
