@@ -8,7 +8,8 @@ Phases, each printing its seconds:
 
 0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 1. build the env-step kernel (``csrc/dmfb_step.cu``) with nvcc for sm_90a
-   and print ptxas's register and spill lines;
+   and print each instantiation's registers, spills and shared memory from
+   the ptxas log; the 4-droplet one (the main path's) must not spill;
 2. hold the kernel against its plain PyTorch version on the card (integer,
    bool and usage outputs bitwise equal, rewards within 1e-5) at three
    shapes, three chained steps each;
@@ -19,7 +20,9 @@ Phases, each printing its seconds:
    which must give the same episodes;
 4. time one epsilon-greedy actor rollout at B = 16384 chips, checking that
    it too launched the kernel once per step, and the kernel against its
-   plain version (CUDA events around a CUDA graph of 50 calls).
+   plain version (CUDA events around a CUDA graph of 50 calls) at the actor
+   batch, B = 16384, and at the evaluation batch, B = 100, each beside its
+   bound and its share of the bound.
 
 The line before the last is a JSON object with the kernel's numbers; the
 last is ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -31,6 +34,7 @@ where CUDA is unavailable.  Writes nothing but the kernel build under
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -45,6 +49,7 @@ sys.path.insert(0, ROOT)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
 KERNEL_B = 16384           # actor batch of the timing phase
+EVAL_B = 100               # evaluation batch (evaluate_task=100)
 TIMED_LAUNCHES = 50
 REWARD_ATOL = 1e-5         # float32 sums of up to 16 rewards, other order
 
@@ -59,6 +64,46 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log_text):
+    """{kernel entry: {"registers", "spill_stores", "spill_loads", "smem"}}
+    from nvcc's ``-Xptxas -v`` output."""
+    out, entry = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[entry]["spill_stores"] = int(m.group(1))
+            out[entry]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[entry]["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def bound(dmfb_step, params, batch):
+    """(bound_ms, bound_by, bytes, ops) of one step of ``batch`` chips: the
+    least bytes (``dmfb_step.min_bytes``) over the HBM rate against the
+    integer operations over the scalar rate: 4 per distance test (2 kinds
+    per droplet pair), one per observation byte and per usage cell."""
+    n = params.n_droplets
+    n_bytes = dmfb_step.min_bytes(params, batch)
+    n_ops = batch * (8 * n * (n - 1) + n * params.obs_dim
+                     + params.width * params.length)
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_SCALAR_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
 
 
 def device_ms(calls, iters=TIMED_LAUNCHES) -> float:
@@ -178,9 +223,14 @@ def main() -> int:
     built = _build.build("dmfb_step")
     log(f"phase 1: built {os.path.relpath(built.path, ROOT)} in "
         f"{built.seconds:.2f} s of nvcc")
-    for line in built.log.splitlines():
-        if any(w in line for w in ("registers", "spill", "Compiling entry")):
-            log("  ptxas: " + line.strip())
+    ptxas = ptxas_summary(built.log)
+    for entry, info in ptxas.items():
+        log(f"  ptxas: {entry}: {info}")
+    main4 = [info for entry, info in ptxas.items() if "ILi4E" in entry]
+    if len(main4) != 1 or main4[0].get("spill_stores") != 0 \
+            or main4[0].get("spill_loads") != 0:
+        raise AssertionError(f"the 4-droplet instantiation spills or was "
+                             f"not found in the ptxas log: {main4}")
     log(f"phase 1: {time.perf_counter() - t0:.2f} s")
 
     # --- 2: kernel vs plain version ---
@@ -272,35 +322,26 @@ def main() -> int:
         f"kernel launches {launches_actor} (T = {T})")
 
     p = env.params
-    sets = [(random_states(tdmfb, p, KERNEL_B, ga),
-             *step_inputs(p, KERNEL_B, ga)) for _ in range(4)]
-    kernel_ms = device_ms([
-        lambda x=x: dmfb_step.step_batch(p, *x) for x in sets])
-    plain_ms = device_ms([
-        lambda x=x: tdmfb.step_core(p, *x) for x in sets])
-    s, a, u = sets[0]
-    s2, o2 = dmfb_step.step_batch(p, s, a, u)
-    # every tensor the step reads or writes whole, once; of the health
-    # board only the N cells under the droplets, each a 32-byte sector
-    n = p.n_droplets
-    health_bytes = KERNEL_B * min(s.health[0].nbytes, n * 32)
-    n_bytes = (sum(t.nbytes for t in (s.pos, s.dist, s.goal, s.usage,
-                                      s.block_mask, a, u, s.step_count,
-                                      s.cum_constraints))
-               + health_bytes
-               + sum(t.nbytes for t in (s2.pos, s2.dist, s2.usage,
-                                        s2.step_count, s2.cum_constraints))
-               + sum(t.nbytes for t in o2))
-    # integer operations: 4 per distance test (2 kinds per droplet pair),
-    # one per observation byte and per usage cell
-    n_ops = KERNEL_B * (8 * n * (n - 1) + n * p.obs_dim
-                        + p.width * p.length)
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_SCALAR_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(f"phase 4: [{smi}] dmfb_step at B={KERNEL_B}: kernel "
-        f"{kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
-        f"{bound_ms * 1e3:.2f} us ({n_bytes} bytes, {n_ops} ops)")
+    timed = {}
+    for batch in (KERNEL_B, EVAL_B):
+        sets = [(random_states(tdmfb, p, batch, ga),
+                 *step_inputs(p, batch, ga)) for _ in range(4)]
+        kernel_ms = device_ms([
+            lambda x=x: dmfb_step.step_batch(p, *x) for x in sets])
+        plain_ms = device_ms([
+            lambda x=x: tdmfb.step_core(p, *x) for x in sets])
+        bound_ms, bound_by, n_bytes, n_ops = bound(dmfb_step, p, batch)
+        timed[batch] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            share=bound_ms / kernel_ms,
+                            tile=dmfb_step.tile_chips(p, batch))
+        log(f"phase 4: [{smi}] dmfb_step at B={batch} "
+            f"({timed[batch]['tile']} chips a tile, "
+            f"{dmfb_step.tile_bytes(p, timed[batch]['tile'])} bytes of shared "
+            f"memory a block): kernel "
+            f"{kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+            f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {n_bytes} bytes, "
+            f"{n_ops} ops), {100 * bound_ms / kernel_ms:.1f}% of the bound")
     log(f"phase 4: {time.perf_counter() - t0:.2f} s")
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
@@ -313,11 +354,16 @@ def main() -> int:
         "launches": launches,
         "launches_actor": launches_actor,
         "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "ms": timed[KERNEL_B]["ms"],
+        "plain_ms": timed[KERNEL_B]["plain_ms"],
+        "bound_ms": timed[KERNEL_B]["bound_ms"],
+        "bound_by": timed[KERNEL_B]["bound_by"],
         "library_ms": None,
+        "share_of_bound": timed[KERNEL_B]["share"],
+        "ms_b100": timed[EVAL_B]["ms"],
+        "plain_ms_b100": timed[EVAL_B]["plain_ms"],
+        "bound_ms_b100": timed[EVAL_B]["bound_ms"],
+        "share_of_bound_b100": timed[EVAL_B]["share"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -23,9 +23,74 @@ from marl_dmfb_tpu_torch.ops import _build
 launches = 0   # kernel launches since import (reset by callers that count)
 
 MAX_DROPLETS = 16  # the kernel's compile-time bound (kMaxDroplets)
+SMEM_LIMIT = 227 * 1024   # a block's dynamic shared memory on sm_90 (kSmemLimit)
+MAX_TILE = 16      # chips per tile at most (kMaxTile)
+FILL_TILES = 264   # tiles that give each of an H100's 132 SMs two
 
-_ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 7 + [
+_ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+
+
+def _span_bytes(params: dmfb.DMFBParams) -> list:
+    """Bytes per chip of each span of one tile buffer in the kernel's shared
+    memory, in the order of ``layout`` in ``csrc/dmfb_step.cu``: the staged
+    inputs (pos, goal, dist, actions, uniforms, step_count,
+    cum_constraints, block_mask, usage), the observations, the new
+    positions and a flag."""
+    n, wl = params.n_droplets, params.width * params.length
+    return [8 * n, 8 * n, 4 * n, 4 * n, 4 * n, 4, 4, wl, 4 * wl,
+            n * params.obs_dim, 8 * n, 1]
+
+
+def tile_bytes(params: dmfb.DMFBParams, tile: int) -> int:
+    """Dynamic shared memory of a block whose tiles hold ``tile`` chips: 16
+    bytes of mbarriers, then two tile buffers, each span rounded up to 16
+    bytes."""
+    return 16 + 2 * sum(-(-tile * b // 16) * 16 for b in _span_bytes(params))
+
+
+def tile_chips(params: dmfb.DMFBParams, batch: int) -> int:
+    """Chips per block for a launch over ``batch`` chips.
+
+    A tile takes bulk copies only where its spans start on 16-byte
+    boundaries, so it is a multiple of the least count of chips that makes
+    every staged span and the observation span a multiple of 16 bytes (4 on
+    a 10x10 board with 4 droplets).  Of those counts that fit in shared
+    memory, it is the largest that still gives ``FILL_TILES`` tiles, else
+    the smallest, so that a small batch spreads over more SMs.  Raises
+    ``ValueError`` where not even one chip fits."""
+    fits = [c for c in range(1, MAX_TILE + 1)
+            if tile_bytes(params, c) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"one chip of a {params.width}x{params.length} board with "
+            f"{params.n_droplets} droplets and fov {params.fov} needs "
+            f"{tile_bytes(params, 1)} bytes of shared memory; the kernel "
+            f"has {SMEM_LIMIT}")
+    staged = _span_bytes(params)[:10]
+    step = next(g for g in (1, 2, 4, 8, 16)
+                if all(g * b % 16 == 0 for b in staged))
+    aligned = [c for c in fits if c % step == 0]
+    if not aligned:
+        return fits[-1]
+    filling = [c for c in aligned if -(-batch // c) >= FILL_TILES]
+    return filling[-1] if filling else aligned[0]
+
+
+def min_bytes(params: dmfb.DMFBParams, batch: int) -> int:
+    """Least bytes one step of ``batch`` chips must move through device
+    memory: every input read once and every output written once, except the
+    health board, which the step reads only under the N droplets, one
+    32-byte sector each."""
+    n, wl = params.n_droplets, params.width * params.length
+    read = (8 * n + 4 * n + 8 * n          # pos, dist, goal
+            + 4 * wl + wl                  # usage, block_mask
+            + 4 * n + 4 * n + 4 + 4        # actions, uniforms, counters
+            + min(4 * wl, 32 * n))         # health under the droplets
+    write = (8 * n + 4 * n + 4 * wl + 4 + 4       # the new state
+             + n * params.obs_dim + 4 * n + n     # obs, rewards, dones
+             + 4 + 1 + 4 + 4)                     # team, terminated,
+    return batch * (read + write)                 # constraints, success
 
 
 def kernel_library() -> ctypes.CDLL:
@@ -86,8 +151,9 @@ def step_batch(params: dmfb.DMFBParams, state: dmfb.DMFBState,
         return dmfb.step_core(params, state, actions, uniforms)
     if device.type != "cuda":
         raise ValueError(f"no dmfb_step kernel for device {device}")
-    fn = kernel_library().dmfb_step_launch
     B, N = state.dist.shape
+    tile = tile_chips(params, B)
+    fn = kernel_library().dmfb_step_launch
     empty = lambda shape, dtype: torch.empty(shape, dtype=dtype,
                                              device=device)
     pos = empty((B, N, 2), torch.int32)
@@ -112,7 +178,7 @@ def step_batch(params: dmfb.DMFBParams, state: dmfb.DMFBState,
         ptr(cum_constraints), ptr(rewards), ptr(obs), ptr(dones),
         ptr(terminated), ptr(constraints), ptr(success), ptr(team),
         B, params.width, params.length, N, params.fov, int(params.stall),
-        params.max_step, rcp_x, rcp_y,
+        params.max_step, tile, rcp_x, rcp_y,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:

@@ -119,19 +119,126 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+@pytest.mark.parametrize("kw,batch,expect", [
+    # the main config at the actor batch: 748 bytes read and 1469 written
+    # per chip
+    (dict(), 16384, 36_323_328),
+    # 20x20, 10 droplets, fov 9, by hand: read pos 80 + dist 40 + goal 80
+    # + usage 1600 + block 400 + actions 40 + uniforms 40 + counters 8
+    # + health 10 sectors of 32 = 2608; write pos 80 + dist 40 + usage 1600
+    # + counters 8 + obs 10*245 + rewards 40 + dones 10 + team 4
+    # + terminated 1 + constraints 4 + success 4 = 4241
+    (dict(width=20, length=20, n_droplets=10), 1000, 1000 * (2608 + 4241)),
+])
+def test_min_bytes(kw, batch, expect):
+    assert dmfb_step.min_bytes(tdmfb.DMFBParams(**kw), batch) == expect
+
+
+def _layout_spans_from_source():
+    """The per-chip byte counts of ``layout`` in csrc/dmfb_step.cu, read
+    from the source with C = 1."""
+    import re
+    src = (_build.CSRC / "dmfb_step.cu").read_text()
+    body = src[src.index("inline Layout layout("):]
+    body = body[:body.index("t.total")]
+    return re.findall(r"take\(e, ([^)]*)\);", body)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(n_droplets=3),
+                                dict(width=20, length=20, n_droplets=16,
+                                     fov=19)])
+def test_tile_bytes_mirrors_the_kernel_layout(kw):
+    p = tdmfb.DMFBParams(**kw)
+    exprs = _layout_spans_from_source()
+    env = dict(C=1, N=p.n_droplets, WL=p.width * p.length, od=p.obs_dim)
+    assert [eval(e, {}, env) for e in exprs] == dmfb_step._span_bytes(p)
+    src = (_build.CSRC / "dmfb_step.cu").read_text()
+    assert "kSmemLimit = 227 * 1024;" in src
+    assert dmfb_step.SMEM_LIMIT == 227 * 1024
+    assert f"kMaxDroplets = {dmfb_step.MAX_DROPLETS};" in src
+    assert f"kMaxTile = {dmfb_step.MAX_TILE};" in src
+
+
+@pytest.mark.parametrize("kw,batch,tile", [
+    (dict(), 16384, 16),          # 1024 tiles, every span 16-byte aligned
+    (dict(), 100, 4),             # the evaluation batch: 25 tiles
+    (dict(), 1, 4),
+    (dict(n_droplets=3), 16385, 16),   # odd obs rows: multiples of 16
+    (dict(width=20, length=20, n_droplets=10), 1024, 8),
+])
+def test_tile_chips_is_aligned_and_fills_the_card(kw, batch, tile):
+    p = tdmfb.DMFBParams(**kw)
+    got = dmfb_step.tile_chips(p, batch)
+    assert got == tile
+    assert dmfb_step.tile_bytes(p, got) <= dmfb_step.SMEM_LIMIT
+    for b in dmfb_step._span_bytes(p)[:10]:   # staged spans and obs
+        assert got * b % 16 == 0
+
+
+def test_tile_chips_shrinks_to_fit_shared_memory():
+    small = tdmfb.DMFBParams()
+    big = tdmfb.DMFBParams(width=60, length=60)
+    tile = dmfb_step.tile_chips(big, 16384)
+    assert tile < dmfb_step.tile_chips(small, 16384)
+    assert dmfb_step.tile_bytes(big, tile) <= dmfb_step.SMEM_LIMIT
+    assert dmfb_step.tile_bytes(big, tile + 4) > dmfb_step.SMEM_LIMIT
+    # one chip of a board too large for shared memory is refused
+    huge = tdmfb.DMFBParams(width=220, length=220, n_droplets=16)
+    assert dmfb_step.tile_bytes(huge, 1) > dmfb_step.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        dmfb_step.tile_chips(huge, 8)
+
+
+def _card_state(p, B, g, offset):
+    """B chips on the card, as chip_smoke.py makes them (degraded health, a
+    quarter of the droplets at their goals, step counts spread over the
+    episode), each tensor a view that starts ``offset`` chips into its
+    storage, so that offset 1 moves the spans off 16-byte boundaries."""
+    n = p.n_droplets
+    s = tdmfb.init(p, B + offset, g, "cuda")
+    at_goal = torch.rand((B + offset, n, 1), generator=g, device="cuda") < 0.25
+    goal = torch.where(at_goal, s.pos, s.goal)
+    s = s._replace(
+        goal=goal,
+        dist=(s.pos - goal).abs().sum(-1, dtype=torch.int32),
+        health=torch.rand(s.health.shape, generator=g,
+                          device="cuda") * 0.5 + 0.5,
+        step_count=torch.randint(0, p.max_step, (B + offset,), generator=g,
+                                 device="cuda", dtype=torch.int32))
+    return tdmfb.DMFBState(*(t[offset:] for t in s))
+
+
+_CARD_CASES = [
+    # (width, length, droplets, blocks, fov, B, offset)
+    pytest.param(10, 10, 4, 0, 9, 16384, 0, id="10-4-0-16384"),
+    pytest.param(20, 20, 4, 2, 9, 1024, 0, id="20-4-2-1024"),
+    pytest.param(20, 20, 10, 0, 9, 1024, 0, id="20-10-0-1024"),
+    # short last tiles
+    *[pytest.param(10, 10, 4, 2, 9, B, 0, id=f"tail-B{B}")
+      for B in (1, 3, 33, 100, 16385)],
+    # droplet counts: 1, 3, 5 give spans that are not multiples of 16 bytes
+    # per chip; 16 takes the 16-droplet instantiation
+    *[pytest.param(10, 10, n, 1, 9, 1000, 0, id=f"N{n}") for n in (1, 3, 5)],
+    pytest.param(20, 20, 16, 2, 9, 1000, 0, id="N16"),
+    *[pytest.param(20, 20, 4, 2, f, 1000, 0, id=f"fov{f}")
+      for f in (3, 5, 19)],
+    pytest.param(12, 10, 4, 2, 5, 1000, 0, id="12x10"),
+    # inputs off 16-byte boundaries: the plain-copy path on full tiles
+    pytest.param(10, 10, 4, 2, 9, 1000, 1, id="unaligned"),
+    # a board whose tile must shrink to fit shared memory
+    pytest.param(60, 60, 4, 2, 9, 2048, 0, id="60x60"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("width,n,blocks,B", [(10, 4, 0, 16384),
-                                              (20, 4, 2, 1024),
-                                              (20, 10, 0, 1024)])
-def test_cuda_kernel_matches_plain(width, n, blocks, B):
+@pytest.mark.parametrize("width,length,n,blocks,fov,B,offset", _CARD_CASES)
+def test_cuda_kernel_matches_plain(width, length, n, blocks, fov, B, offset):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    p = tdmfb.DMFBParams(width=width, length=width, n_droplets=n,
-                         n_blocks=blocks)
+    p = tdmfb.DMFBParams(width=width, length=length, n_droplets=n,
+                         n_blocks=blocks, fov=fov)
     g = torch.Generator(device="cuda").manual_seed(B + n)
-    s = tdmfb.init(p, B, g, "cuda")
-    s = s._replace(health=torch.rand(s.health.shape, generator=g,
-                                     device="cuda") * 0.5 + 0.5)
+    s = _card_state(p, B, g, offset)
     for _ in range(3):
         a = torch.randint(0, 5, (B, n), generator=g, device="cuda",
                           dtype=torch.int32)

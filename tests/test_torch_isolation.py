@@ -1,5 +1,6 @@
-"""The port stands alone: ``marl_dmfb_tpu_torch``, ``chip_smoke.py`` and
-``tools/profile_torch_rollout.py`` import nothing of JAX, its libraries, YAML, matplotlib or the JAX package
+"""The port stands alone: ``marl_dmfb_tpu_torch``, ``chip_smoke.py`` and the
+card's tools (``tools/profile_torch_rollout.py``, ``tools/time_dmfb_step.py``)
+import nothing of JAX, its libraries, YAML, matplotlib or the JAX package
 (the GPU machine has none of them), and the entry point runs on the card
 unless told otherwise, raising where there is none."""
 
@@ -13,7 +14,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "yaml",
              "matplotlib", "marl_dmfb_tpu"}
 PORT_FILES = sorted((ROOT / "marl_dmfb_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_rollout.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_rollout.py",
+    ROOT / "tools" / "time_dmfb_step.py"]
 
 
 def _imported_roots(path):
