@@ -22,19 +22,30 @@ Phases, each printing its seconds:
    it too launched the kernel once per step, and the kernel against its
    plain version (CUDA events around a CUDA graph of 50 calls) at the actor
    batch, B = 16384, and at the evaluation batch, B = 100, each beside its
-   bound and its share of the bound.
+   bound and its share of the bound;
+5. train through the train entry point at full width (24 conv channels, GRU
+   hidden 128, learner batch 128, replay 5000, B = 64 chips a rollout, 32
+   updates a cycle) for at least 7 cycles, so that update 200 syncs the
+   target, with an evaluation at the start, one mid-run and one at the end;
+   check that the env step went through the kernel once per step of every
+   training and evaluation rollout, that every loss is finite, that the
+   update count is 32 a cycle, that the target moved and differs from the
+   params, and that the final checkpoint reloads bitwise through the
+   evaluate entry point; hold 3 learner updates on the card against the same
+   updates on the CPU; and time an update, a cycle and the env steps.
 
-The line before the last is a JSON object with the kernel's numbers; the
-last is ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
-exit code is non-zero and no result line is printed.  Exits non-zero at once
-where CUDA is unavailable.  Writes nothing but the kernel build under
-``build/``.
+The kernel JSON line (the kernel's numbers) and a training JSON line come
+before the last, ``{"ok": true, "device": {...}}``.  Any failed check
+raises, so the exit code is non-zero and no result line is printed.  Exits
+non-zero at once where CUDA is unavailable.  Writes nothing but the kernel
+build and the training run's checkpoints and curves under ``build/``.
 """
 
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -52,6 +63,21 @@ KERNEL_B = 16384           # actor batch of the timing phase
 EVAL_B = 100               # evaluation batch (evaluate_task=100)
 TIMED_LAUNCHES = 50
 REWARD_ATOL = 1e-5         # float32 sums of up to 16 rewards, other order
+TRAIN_B = 64               # chips a training rollout (32 updates a cycle)
+TRAIN_STEPS = 7 * TRAIN_B * 40   # >= 7 cycles: >= 224 updates, one sync
+TRAIN_EVAL_CYCLE = 10000   # evaluations at 0 steps, once mid-run, at the end
+# the learner on the card against the CPU, TF32 off: the loss within rtol
+# LOSS_RTOL at each update (float32 sums over 128 x 4 rows x 40 steps in
+# another order); the params after LEARN_UPDATES updates within PARAM_ATOL,
+# except elements whose CPU gradient is within NOISE of the gradient's norm
+# of zero at some update, which Adam moves by up to a learning rate either
+# way (held to 2 * lr * updates)
+LEARN_UPDATES = 3
+LOSS_RTOL = 1e-5
+PARAM_ATOL = 1e-5
+NOISE = 1e-6
+TIMED_UPDATES = 10
+TIMED_CYCLES = 3
 
 
 def log(msg):
@@ -191,14 +217,50 @@ def compare_kernel(tdmfb, dmfb_step, params, batch, generator):
     return worst
 
 
+def compare_learner(VDNLearner, build_agent_net, args, state, batch):
+    """``LEARN_UPDATES`` updates of one learner state on one minibatch, on
+    the card and on the CPU; returns the largest loss difference relative
+    to the CPU's, the largest param difference outside noise gradients and
+    in all, and the card's learner."""
+    cpu = VDNLearner(args, build_agent_net(args))
+    card = VDNLearner(args, build_agent_net(args).cuda())
+    cpu.load_state(state)
+    card.load_state(state)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    noisy = {k: torch.zeros(v.shape, dtype=torch.bool)
+             for k, v in cpu.params.items()}
+    loss_rel = 0.0
+    for _ in range(LEARN_UPDATES):
+        _, grads = cpu.loss_and_grads(cpu_batch)
+        norm = torch.sqrt(sum((g.double() ** 2).sum()
+                              for g in grads.values()))
+        for k, g in grads.items():
+            noisy[k] |= g.abs() <= NOISE * norm
+        want = float(cpu.update(cpu_batch))
+        got = float(card.update(batch))
+        if not math.isfinite(got):
+            raise AssertionError(f"the card's loss is {got}")
+        loss_rel = max(loss_rel, abs(got - want) / abs(want))
+    clean = worst = 0.0
+    for k, p in cpu.params.items():
+        diff = (card.params[k].detach().cpu() - p.detach()).abs()
+        kept = diff[~noisy[k]]
+        clean = max(clean, float(kept.max()) if kept.numel() else 0.0)
+        worst = max(worst, float(diff.max()))
+    return loss_rel, clean, worst, card
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from marl_dmfb_tpu_torch import evaluate
+    from marl_dmfb_tpu_torch import checkpoint, evaluate, train
+    from marl_dmfb_tpu_torch.algos.qlearn import VDNLearner
     from marl_dmfb_tpu_torch.config import get_evaluate_args
     from marl_dmfb_tpu_torch.config import make_env_from_args
+    from marl_dmfb_tpu_torch.replay import sample
+    from marl_dmfb_tpu_torch.trainer import Trainer
     from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
     from marl_dmfb_tpu_torch.models.networks import (build_agent_net,
                                                      init_params)
@@ -343,6 +405,117 @@ def main() -> int:
             f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {n_bytes} bytes, "
             f"{n_ops} ops), {100 * bound_ms / kernel_ms:.1f}% of the bound")
     log(f"phase 4: {time.perf_counter() - t0:.2f} s")
+
+    # --- 5: train on the card, through the train entry point ---
+    t0 = time.perf_counter()
+    data_dir = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    targv = ["dmfb", "--drop_num=4", "--fov=9",
+             f"--n_parallel_envs={TRAIN_B}", f"--exact_steps={TRAIN_STEPS}",
+             f"--evaluate_cycle={TRAIN_EVAL_CYCLE}", "--evaluate_task=100",
+             f"--data_dir={data_dir}"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dmfb_step.launches = 0
+    t1 = time.perf_counter()
+    trainer = train.main(targv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    launches_train = dmfb_step.launches
+    peak_train = torch.cuda.max_memory_allocated()
+    targs = trainer.args
+    width = (targs.hyper_hidden_dim, targs.rnn_hidden_dim, targs.batch_size,
+             targs.buffer_size, trainer.B, trainer.updates_per_rollout)
+    if width != (24, 128, 128, 5000, TRAIN_B, 32):
+        raise AssertionError(f"phase 5 trained at (conv, hidden, batch, "
+                             f"replay, B, updates a cycle) = {width}")
+    cycles = trainer.n_cycles
+    evals = len(trainer.success_rate)
+    if launches_train != T * (cycles + evals):
+        raise AssertionError(
+            f"training launched the kernel {launches_train} times, expected "
+            f"T x ({cycles} training + {evals} evaluation rollouts)")
+    if evals != 3:
+        raise AssertionError(f"{evals} evaluations, expected 3")
+    losses = torch.stack(trainer.losses).cpu()
+    if len(losses) != cycles or not bool(losses.isfinite().all()):
+        raise AssertionError(f"losses {losses.tolist()}")
+    learner = trainer.learner
+    updates = learner.train_step
+    if updates != 32 * cycles or updates < 200:
+        raise AssertionError(f"{updates} updates in {cycles} cycles")
+    first = checkpoint.load(checkpoint.model_state_path(targs, 0))
+    start = first["learner"]["target_params"]["agent"]
+    target = dict(learner.target_net.named_parameters())
+    moved = sum(not torch.equal(start[k], v.cpu()) for k, v in target.items())
+    apart = sum(not torch.equal(learner.params[k], v)
+                for k, v in target.items())
+    if moved != len(target) or apart != len(target):
+        raise AssertionError(
+            f"target sync: {moved} of {len(target)} target tensors moved "
+            f"from their start, {apart} differ from the params")
+    log(f"phase 5: [{smi}] trained {cycles} cycles of B={TRAIN_B} "
+        f"({updates} updates) in {train_s:.2f} s; kernel "
+        f"launches {launches_train} = T x ({cycles} + {evals}); losses "
+        f"{[round(x, 4) for x in losses.tolist()]}; success "
+        f"{trainer.success_rate}; epsilon {float(trainer.epsilon):.4f}; "
+        f"peak memory {peak_train / 2 ** 20:.1f} MiB")
+
+    # the final checkpoint through the evaluate entry point, bitwise
+    final = checkpoint.load(checkpoint.model_state_path(targs, "final"))
+    for k, v in learner.params.items():
+        if not torch.equal(final["learner"]["params"]["agent"][k], v.cpu()):
+            raise AssertionError(f"the final checkpoint's {k} differs")
+    eargv = ["dmfb", "--drop_num=4", "--fov=9", "--evaluate_task=100",
+             f"--data_dir={data_dir}", "--load_model"]
+    m_loaded = evaluate.main(eargv)
+    eargs = get_evaluate_args(eargv)
+    ref = Trainer(make_env_from_args(eargs), eargs, eval_only=True)
+    ref.net.load_state_dict(trainer.net.state_dict())
+    m_ref = ref.evaluate()
+    if m_loaded != m_ref:
+        raise AssertionError(f"evaluate --load_model gave {m_loaded}, the "
+                             f"trained net {m_ref}")
+    log(f"phase 5: evaluate --load_model of the final checkpoint: "
+        f"{m_loaded}, equal to the trained net's")
+
+    # the learner on the card against the CPU, one minibatch of 128
+    idx = (torch.arange(targs.batch_size, device="cuda") * 3
+           % trainer.replay.size)
+    batch = sample(trainer.replay, targs.batch_size, idx=idx)
+    loss_rel, clean, worst, card = compare_learner(
+        VDNLearner, build_agent_net, targs, learner.state(), batch)
+    adam_bound = 2 * targs.lr * LEARN_UPDATES
+    log(f"phase 5: learner card vs CPU over {LEARN_UPDATES} updates at batch "
+        f"{targs.batch_size}: loss rel diff {loss_rel:.3g} (<= {LOSS_RTOL}), "
+        f"params max diff {clean:.3g} outside noise gradients (<= "
+        f"{PARAM_ATOL}), {worst:.3g} in all (<= {adam_bound:.3g})")
+    if not (loss_rel <= LOSS_RTOL and clean <= PARAM_ATOL
+            and worst <= adam_bound):
+        raise AssertionError("the learner on the card departs from the CPU")
+
+    # times: an update (CUDA events), a cycle and its env steps (host clock)
+    card.update(batch)
+    start_ev = torch.cuda.Event(enable_timing=True)
+    end_ev = torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    for _ in range(TIMED_UPDATES):
+        card.update(batch)
+    end_ev.record()
+    end_ev.synchronize()
+    update_ms = start_ev.elapsed_time(end_ev) / TIMED_UPDATES
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    steps = sum(trainer.train_cycle() for _ in range(TIMED_CYCLES))
+    torch.cuda.synchronize()
+    cycle_s = (time.perf_counter() - t1) / TIMED_CYCLES
+    train_rate = steps / (cycle_s * TIMED_CYCLES)
+    log(f"phase 5: [{smi}] learner update at batch {targs.batch_size}: "
+        f"{update_ms:.2f} ms; train cycle (B={TRAIN_B}, 32 updates): "
+        f"{cycle_s * 1e3:.1f} ms, {train_rate:.0f} counted env-steps/s "
+        f"({TRAIN_B * T / cycle_s:.0f} lockstep); peak memory of the run "
+        f"{peak_train / 2 ** 20:.1f} MiB")
+    log(f"phase 5: {time.perf_counter() - t0:.2f} s")
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     log(smi)
@@ -353,6 +526,7 @@ def main() -> int:
         "replaces": "marl_dmfb_tpu/ops/dmfb_step_pallas.py:44",
         "launches": launches,
         "launches_actor": launches_actor,
+        "launches_train": launches_train,
         "max_abs_err": max_err,
         "ms": timed[KERNEL_B]["ms"],
         "plain_ms": timed[KERNEL_B]["plain_ms"],
@@ -365,6 +539,14 @@ def main() -> int:
         "bound_ms_b100": timed[EVAL_B]["bound_ms"],
         "share_of_bound_b100": timed[EVAL_B]["share"],
     }]}))
+    log(json.dumps({"train": {
+        "cycles": cycles, "updates": updates,
+        "evaluations": evals, "launches_train": launches_train,
+        "update_ms": update_ms, "cycle_ms": cycle_s * 1e3,
+        "env_steps_per_s": train_rate, "peak_mib": peak_train / 2 ** 20,
+        "card_vs_cpu": {"loss_rel": loss_rel, "param_diff": clean,
+                        "param_diff_all": worst},
+        "device": smi}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

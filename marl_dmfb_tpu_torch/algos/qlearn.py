@@ -1,0 +1,286 @@
+"""The VDN learner (JAX ``algos/qlearn.py``).
+
+One update samples a minibatch of episodes, unrolls the agent net over the
+episode's T steps for the eval stream (with gradients) and the target
+stream (without), takes the chosen and the masked-max target Qs, sums them
+over the agents (VDN), and minimises the masked TD loss with a global-norm
+clip and Adam (or RMSprop, or SGD).  The target net is copied from the eval
+net every ``target_update_cycle`` updates.
+
+The JAX package had no Pallas kernel here; the port runs cuDNN/cuBLAS
+through ``torch.nn`` and writes the optimizer step by hand, in optax's
+form, because torch's own optimizers differ from optax's:
+
+* the clip is optax's ``clip_by_global_norm``: ``g * max_norm / |g|`` only
+  when ``|g| >= max_norm`` (torch's ``clip_grad_norm_`` adds 1e-6 to the
+  norm and always multiplies);
+* ``RMS`` is optax's ``rmsprop``: decay 0.9, eps inside the square root,
+  no bias correction (torch's ``RMSprop`` puts eps outside);
+* ``--lr_decay`` is optax's ``cosine_decay_schedule(lr, total_updates,
+  alpha=0.05)``, read at the update count before the step and flat after
+  ``total_updates`` (torch's ``CosineAnnealingLR`` rises again after
+  ``T_max``).
+
+The optimizer's counts are int32 tensors on the CPU, so the bias
+corrections and the schedule are computed on the host in float32 and no
+update waits for the device.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from marl_dmfb_tpu_torch.models.networks import vdn_mix
+from marl_dmfb_tpu_torch.replay import ReplayState, sample
+from marl_dmfb_tpu_torch.utils.platform import disable_tf32
+
+ADAM_BETAS = (0.9, 0.99)   # JAX qlearn.py:78 (reference vdn.py:67-68)
+EPS = 1e-8                 # optax's default for adam and rmsprop
+RMS_DECAY = 0.9            # optax's rmsprop default
+LR_DECAY_ALPHA = 0.05      # cosine decay to 5% of lr (JAX qlearn.py:69-71)
+MASKED_Q = -9999999.0      # target Q of an unavailable action (vdn.py:109)
+
+
+def _f32(x) -> np.float32:
+    return np.float32(x)
+
+
+def _count() -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32)
+
+
+class Optimizer:
+    """``optax.chain(clip_by_global_norm(max_norm), adam | rmsprop | sgd)``
+    over a dict of named tensors, stepping the parameters in place.
+
+    The state is a dict of tensors laid out as optax's: Adam holds
+    ``count``, ``mu`` and ``nu``; RMS holds ``nu``; SGD nothing; a decaying
+    learning rate adds ``schedule_count``."""
+
+    def __init__(self, kind: str, lr: float, max_norm: float,
+                 decay_steps: Optional[int] = None):
+        self.kind = kind
+        self.lr = lr
+        self.max_norm = max_norm
+        self.decay_steps = decay_steps
+
+    def init(self, params: dict) -> dict:
+        zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}
+        state = {}
+        if self.kind == "ADAM":
+            state = {"count": _count(), "mu": zeros(), "nu": zeros()}
+        elif self.kind == "RMS":
+            state = {"nu": zeros()}
+        if self.decay_steps is not None:
+            state["schedule_count"] = _count()
+        return state
+
+    def learning_rate(self, count: int) -> np.float32:
+        """The step size at ``count`` updates (optax's
+        ``cosine_decay_schedule``, in float32)."""
+        if self.decay_steps is None:
+            return _f32(self.lr)
+        c = _f32(min(count, self.decay_steps))
+        cosine = _f32(0.5) * (_f32(1) + np.cos(
+            _f32(math.pi) * c / _f32(self.decay_steps)))
+        decayed = _f32(1 - LR_DECAY_ALPHA) * cosine + _f32(LR_DECAY_ALPHA)
+        return _f32(self.lr) * decayed
+
+    @torch.no_grad()
+    def step(self, params: dict, grads: dict, state: dict) -> dict:
+        """Clip ``grads`` by their global norm, take one step of the
+        parameters in place and return the new state."""
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        keep = g_norm < self.max_norm
+        grads = {k: torch.where(keep, g, g / g_norm * self.max_norm)
+                 for k, g in grads.items()}
+        state = dict(state)
+        if "schedule_count" in state:
+            n = int(state["schedule_count"])
+            lr = self.learning_rate(n)
+            state["schedule_count"] = torch.tensor(n + 1, dtype=torch.int32)
+        else:
+            lr = self.learning_rate(0)
+        scale = float(-lr)
+        if self.kind == "ADAM":
+            b1, b2 = ADAM_BETAS
+            count = int(state["count"]) + 1
+            bc1 = float(_f32(1) - _f32(b1) ** _f32(count))
+            bc2 = float(_f32(1) - _f32(b2) ** _f32(count))
+            mu, nu = {}, {}
+            for k, g in grads.items():
+                mu[k] = (1 - b1) * g + b1 * state["mu"][k]
+                nu[k] = (1 - b2) * (g * g) + b2 * state["nu"][k]
+                u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + EPS)
+                params[k].add_(u * scale)
+            state.update(count=torch.tensor(count, dtype=torch.int32),
+                         mu=mu, nu=nu)
+        elif self.kind == "RMS":
+            nu = {}
+            for k, g in grads.items():
+                nu[k] = (1 - RMS_DECAY) * (g * g) + RMS_DECAY * state["nu"][k]
+                params[k].add_(torch.rsqrt(nu[k] + EPS) * g * scale)
+            state["nu"] = nu
+        else:
+            for k, g in grads.items():
+                params[k].add_(g * scale)
+        return state
+
+
+def make_optimizer(args) -> Optimizer:
+    """The optimizer per config (JAX qlearn.py:50-79): ``RMS``, ``SGD``, or
+    Adam for anything else (the reference maps ``ASGD`` to Adam too).
+
+    With ``--lr_decay`` the schedule runs over the JAX package's estimate
+    of the run's updates: failures count the full episode limit, so an
+    episode counts about 0.75 T env steps."""
+    decay_steps = None
+    if args.lr_decay:
+        est_steps_per_ep = max(1, int(0.75 * args.episode_limit))
+        decay_steps = max(1, int(args.total_env_steps * args.train_time
+                                 / (args.n_episodes * est_steps_per_ep)))
+    kind = args.optimizer if args.optimizer in ("RMS", "SGD") else "ADAM"
+    return Optimizer(kind, args.lr, args.grad_norm_clip, decay_steps)
+
+
+def unroll(net: nn.Module, inputs: torch.Tensor,
+           rnn_hidden: int) -> torch.Tensor:
+    """The whole net in a loop over time on ``(b*N)`` rows: inputs
+    ``(b, T, N, in_dim)`` -> Qs ``(b, T, N, n_actions)``."""
+    b, T, N = inputs.shape[:3]
+    x_tb = inputs.transpose(0, 1).reshape(T, b * N, -1)
+    h = inputs.new_zeros((b * N, rnn_hidden))
+    qs = []
+    for t in range(T):
+        q, h = net(x_tb[t], h)
+        qs.append(q)
+    return torch.stack(qs).view(T, b, N, -1).transpose(0, 1)
+
+
+class VDNLearner:
+    """The eval net (trained in place; the rollout may share it), its
+    target copy, the optimizer state and the update count.
+
+    :meth:`state` and :meth:`load_state` carry all four as the tree that
+    the JAX package's ``LearnerState`` is: ``params`` and
+    ``target_params`` (``{"agent": {name: tensor}}``), ``opt_state`` and
+    ``train_step``."""
+
+    def __init__(self, args, net: nn.Module):
+        if args.alg != "vdn":
+            raise NotImplementedError(
+                f"--alg {args.alg}: QMIX is ROADMAP.md Queue 1 item 7")
+        disable_tf32()
+        self.args = args
+        self.net = net
+        self.target_net = copy.deepcopy(net).requires_grad_(False)
+        self.params = dict(net.named_parameters())
+        self.opt = make_optimizer(args)
+        self.opt_state = self.opt.init(self.params)
+        self.train_step = 0
+
+    # ------------------------------------------------------------------
+    def build_inputs(self, batch: dict, u_onehot: torch.Tensor):
+        """Eval stream: ``o_ext[:, :T]`` with the previous step's action
+        one-hot (zeros at t = 0); target stream: ``o_ext[:, 1:]`` with this
+        step's (JAX qlearn.py:216-232)."""
+        o_ext = batch["o_ext"].float()
+        eval_obs, tgt_obs = o_ext[:, :-1], o_ext[:, 1:]
+        if not self.args.last_action:
+            return eval_obs, tgt_obs
+        prev_u = torch.cat(
+            [torch.zeros_like(u_onehot[:, :1]), u_onehot[:, :-1]], dim=1)
+        return (torch.cat([eval_obs, prev_u], dim=-1),
+                torch.cat([tgt_obs, u_onehot], dim=-1))
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """The masked TD loss of a minibatch in the ``(b, T, N, .)`` views
+        (JAX qlearn.py:234-273)."""
+        H, A = self.args.rnn_hidden_dim, self.args.n_actions
+        u = batch["u"].long()                          # (b, T, N, 1)
+        r = batch["r"].float()                         # (b, T, 1)
+        terminated = batch["terminated"].float()
+        mask = 1.0 - batch["padded"].float()           # (b, T, 1)
+        # the one-hots are zero on padded steps, and every action is
+        # available on a live step and none on a padded one
+        u_onehot = F.one_hot(u[..., 0], A).float() * mask[..., None]
+        avail_next = mask[..., None].expand(u_onehot.shape)
+        eval_in, tgt_in = self.build_inputs(batch, u_onehot)
+        q_evals = unroll(self.net, eval_in, H)
+        with torch.no_grad():
+            q_targets = unroll(self.target_net, tgt_in, H)
+        q_e = q_evals.gather(3, u).squeeze(3)          # (b, T, N)
+        q_t = torch.where(avail_next == 0.0, MASKED_Q, q_targets).amax(3)
+        q_tot_e, q_tot_t = vdn_mix(q_e), vdn_mix(q_t)
+        targets = r + self.args.gamma * q_tot_t * (1.0 - terminated)
+        td = (targets.detach() - q_tot_e) * mask
+        return torch.sum(td ** 2) / torch.sum(mask)
+
+    def loss_and_grads(self, batch: dict):
+        loss = self.loss(batch)
+        grads = torch.autograd.grad(loss, list(self.params.values()))
+        return loss, dict(zip(self.params, grads))
+
+    def update(self, batch: dict) -> torch.Tensor:
+        """One step on ``batch``; the target net takes the eval net's
+        parameters when the new update count is a multiple of
+        ``target_update_cycle`` (JAX qlearn.py:275-294).  Returns the loss
+        before the step."""
+        loss, grads = self.loss_and_grads(batch)
+        self.opt_state = self.opt.step(self.params, grads, self.opt_state)
+        self.train_step += 1
+        if self.train_step % self.args.target_update_cycle == 0:
+            with torch.no_grad():
+                for t, p in zip(self.target_net.parameters(),
+                                self.net.parameters()):
+                    t.copy_(p)
+        return loss.detach()
+
+    def learn_many(self, replay: ReplayState, n_updates: int,
+                   generator: Optional[torch.Generator] = None,
+                   idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``n_updates`` sample-and-update steps; returns the mean loss.
+        ``idx`` ``(n_updates, batch_size)`` gives the minibatches' episode
+        indices instead of drawing them from ``generator``."""
+        losses = []
+        for k in range(n_updates):
+            batch = sample(replay, self.args.batch_size, generator,
+                           None if idx is None else idx[k])
+            losses.append(self.update(batch))
+        return torch.stack(losses).mean()
+
+    # ------------------------------------------------------------------
+    def state(self) -> dict:
+        """The learner's state as a tree of tensors (copies)."""
+        copy_of = lambda d: {k: v.detach().clone() for k, v in d.items()}
+        opt = {k: ({"agent": copy_of(v)} if isinstance(v, dict)
+                   else v.clone()) for k, v in self.opt_state.items()}
+        return {
+            "params": {"agent": copy_of(self.params)},
+            "target_params": {
+                "agent": copy_of(dict(self.target_net.named_parameters()))},
+            "opt_state": opt,
+            "train_step": torch.tensor(self.train_step, dtype=torch.int32),
+        }
+
+    @torch.no_grad()
+    def load_state(self, tree: dict):
+        """Take a tree laid out as :meth:`state`'s (checked by name first,
+        e.g. by ``checkpoint.restructure``)."""
+        for k, p in self.params.items():
+            p.copy_(tree["params"]["agent"][k])
+        for k, p in self.target_net.named_parameters():
+            p.copy_(tree["target_params"]["agent"][k])
+        device = next(iter(self.params.values())).device
+        self.opt_state = {
+            k: ({n: t.to(device).clone() for n, t in v["agent"].items()}
+                if isinstance(v, dict) else v.cpu().to(torch.int32))
+            for k, v in tree["opt_state"].items()}
+        self.train_step = int(tree["train_step"])

@@ -1,0 +1,118 @@
+"""The port's checkpoints: ``torch.save`` of the tree that the JAX package's
+``Trainer.save_model`` writes with Orbax (JAX ``trainer.py:317-350``).
+
+The tree holds ``learner`` (``params``, ``target_params``, ``opt_state``,
+``train_step``), ``ema`` under ``--param_ema``, ``epsilon``, ``generator``
+(the training generator's state, in place of the JAX PRNG key) and
+``net_config``; under ``--ckpt_replay`` also ``replay`` and
+``env_states``.  Every leaf is a tensor, a number or a string, so loading
+unpickles nothing else (``weights_only=True``).
+
+Loading is strict by name (:func:`restructure`, after JAX
+``restructure_by_path``): a missing entry, an extra entry, or a leaf of
+another shape or dtype kind raises ``ValueError`` naming its path.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+
+def model_state_path(args, tag) -> str:
+    """The checkpoint file for a tag, in the JAX package's scheme
+    (``<data_dir>/<model_dir>/<alg>/fov<fov>/<run>_<tag>_state``): "final"
+    or "3" take the current run's prefix, a tag like "0_final" names its
+    run.  The port adds ``.pt``, so that its file never collides with the
+    JAX package's Orbax directory of the same name."""
+    model_dir = os.path.join(args.data_dir, args.model_dir.lstrip("./"),
+                             args.alg, f"fov{args.fov}")
+    name = (f"{tag}_state" if "_" in str(tag)
+            else f"{args.ith_run}_{tag}_state")
+    return os.path.join(model_dir, name + ".pt")
+
+
+def load_model_tag(args) -> str:
+    """``--load_model_name`` as a tag: "0_final" and "final" both name run
+    0's final checkpoint (JAX train.py:49-53, evaluate.py:101-104)."""
+    tag = args.load_model_name or "final"
+    if tag.startswith(f"{args.ith_run}_"):
+        tag = tag[len(f"{args.ith_run}_"):]
+    return tag.rstrip("_")
+
+
+def save(path: str, tree: dict) -> None:
+    """Write ``tree`` to ``path`` atomically (a reader sees the old file or
+    the new one, never a part)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(tree, tmp)
+    os.replace(tmp, path)
+
+
+def load(path: str) -> dict:
+    """Read a checkpoint tree onto the CPU; raises ``FileNotFoundError``
+    naming ``path`` when there is none."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no checkpoint at {path}")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _fmt(path) -> str:
+    return "/".join(map(str, path)) or "<root>"
+
+
+def restructure(template, data, path: str = "<checkpoint>", _at=()):
+    """``data`` laid out as ``template``, checked by name: every leaf of the
+    template must be at the same path in ``data``, with the same shape and
+    dtype kind (floating or not), and ``data`` may hold nothing more.
+    Tensor leaves move to the template leaf's device."""
+    if isinstance(template, dict):
+        if not isinstance(data, dict):
+            raise ValueError(f"checkpoint at {path} has a leaf at "
+                             f"'{_fmt(_at)}' where a tree belongs")
+        extra = sorted(_fmt(_at + p) for p, _ in _leaves(
+            {k: v for k, v in data.items() if k not in template}))
+        if extra:
+            raise ValueError(
+                f"checkpoint structure mismatch at {path}: saved tree has "
+                f"entries this trainer's state does not: {extra[:5]} - was "
+                "it trained with different flags?")
+        out = {}
+        for k, t in template.items():
+            if k not in data:
+                raise ValueError(
+                    f"checkpoint at {path} has no entry for "
+                    f"'{_fmt(_at + (k,))}' - the saved layout does not "
+                    "match this trainer's state")
+            out[k] = restructure(t, data[k], path, _at + (k,))
+        return out
+    where = _fmt(_at)
+    ts = tuple(getattr(template, "shape", ()))
+    ls = tuple(getattr(data, "shape", ()))
+    if ts != ls or isinstance(data, dict):
+        raise ValueError(f"checkpoint leaf '{where}' shape mismatch at "
+                         f"{path}: restored {ls} vs expected {ts}")
+    if _is_float(template) != _is_float(data):
+        raise ValueError(
+            f"checkpoint leaf '{where}' dtype kind mismatch at {path}: "
+            f"restored {getattr(data, 'dtype', type(data).__name__)} vs "
+            f"expected {getattr(template, 'dtype', type(template).__name__)}")
+    if isinstance(template, torch.Tensor) and isinstance(data, torch.Tensor):
+        return data.to(template.device)
+    return data
+
+
+def _is_float(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.is_floating_point()
+    return isinstance(x, float)

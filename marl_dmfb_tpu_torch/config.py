@@ -1,20 +1,23 @@
 """Configuration for the PyTorch port: CLI args + per-droplet-count
 hyperparameters.
 
-Ported from ``marl_dmfb_tpu/config.py`` (the evaluation half).  The DMFB
-hyperparameter YAMLs (``marl_dmfb_tpu/data/dmfb/{2,3,4,5,10}d.yaml``) are
-carried as the dict literal :data:`DMFB_HPARAMS`, so nothing parses YAML at
-run time; a CPU test holds the dict equal to the YAML files.
+Ported from ``marl_dmfb_tpu/config.py``.  The DMFB hyperparameter YAMLs
+(``marl_dmfb_tpu/data/dmfb/{2,3,4,5,10}d.yaml``) are carried as the dict
+literal :data:`DMFB_HPARAMS`, so nothing parses YAML at run time; a CPU
+test holds the dict equal to the YAML files.
 
-Deviations from the JAX CLI, all of them for this slice's scope:
+Deviations from the JAX CLI:
 
-* ``--device`` (default ``cuda``) picks the torch device; the entry point
-  raises when CUDA is asked for and absent.
-* ``--load_model`` defaults to False and, like ``--show``/``--show_save``,
-  raises ``NotImplementedError``: the port has no checkpoint format yet.
-* The TPU-only flags (``--mesh``, ``--n_parallel_envs``,
-  ``--compute_dtype``) and the degradation-sweep flags
-  (``--evaluate_epoch``, ``--noise_eps``) are not parsed.
+* ``--device`` (default ``cuda``) picks the torch device; the entry points
+  raise when CUDA is asked for and absent.
+* evaluation's ``--load_model`` defaults to False (JAX: True), because the
+  JAX package's Orbax checkpoints cannot reach the port yet; it reads the
+  port's own checkpoints (``checkpoint.py``).  ``--show``/``--show_save``
+  raise ``NotImplementedError``, and ``--evaluate_epoch``/``--noise_eps``
+  (the degradation sweep) are not parsed.
+* the TPU and later-slice flags are parsed and raise
+  ``NotImplementedError`` when set away from their default (see
+  :func:`refuse_unported`); ``--scan_unroll`` is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -71,7 +74,12 @@ class Args:
     seed: int = 12
     alg: str = "vdn"
     last_action: bool = True
+    reuse_network: bool = True
+    gamma: float = 0.99
+    optimizer: str = "ADAM"
     evaluate_task: int = 100
+    model_dir: str = "./model"
+    result_dir: str = "./TrainResult"
     load_model: bool = False
     load_model_name: str = ""
     stall: bool = True
@@ -82,6 +90,13 @@ class Args:
     width: Optional[int] = None
     length: Optional[int] = None
     version: Optional[str] = None
+
+    # --- training flags (JAX config.py:50-55) ---
+    n_steps: int = 20             # x100000 total env steps
+    ith_run: int = 0
+    replay_dir: str = ""
+    evaluate_cycle: int = 100000
+    online_eval: bool = True
 
     # --- evaluation flags ---
     show: bool = False
@@ -115,6 +130,20 @@ class Args:
     state_shape: int = 0
     episode_limit: int = 0
 
+    # --- the JAX package's additions (JAX config.py:85-103) ---
+    n_parallel_envs: int = 0      # 0 -> n_episodes
+    data_dir: str = ""            # output root; default data-<env>
+    mesh: str = "auto"
+    compute_dtype: str = "float32"
+    lr_decay: bool = False
+    local_sampling: bool = False
+    remat: bool = False
+    fused_streams: bool = False
+    scan_unroll: int = 0          # no meaning in eager torch; ignored
+    vmap_seeds: int = 0
+    ckpt_replay: bool = False
+    param_ema: float = 0.0
+
     # --- port additions ---
     device: str = "cuda"
 
@@ -130,6 +159,8 @@ class Args:
             self.length = 10
         elif self.length is None:
             self.length = self.width
+        if not self.data_dir:
+            self.data_dir = f"data-{self.name}"
         return self
 
     def load_hparams(self, drop_num: Optional[int] = None):
@@ -149,14 +180,29 @@ class Args:
             setattr(self, k, v)
         return self
 
+    @property
+    def total_env_steps(self) -> int:
+        return self.n_steps  # already scaled by get_train_args
 
-def _evaluate_parser() -> argparse.ArgumentParser:
+    @property
+    def rollout_batch(self) -> int:
+        return (self.n_parallel_envs if self.n_parallel_envs > 0
+                else self.n_episodes)
+
+
+def _common_parser() -> argparse.ArgumentParser:
+    """JAX ``_common_parser`` (config.py:163-197), plus ``--device``."""
     p = argparse.ArgumentParser()
     p.add_argument("name", default="dmfb", choices=["dmfb", "meda"])
     p.add_argument("--seed", type=int, default=12)
     p.add_argument("--alg", type=str, default="vdn")
     p.add_argument("--last_action", default=True, action="store_false")
+    p.add_argument("--reuse_network", default=True, action="store_false")
+    p.add_argument("--gamma", type=float, default=0.99)
+    p.add_argument("--optimizer", type=str, default="ADAM")
     p.add_argument("--evaluate_task", type=int, default=100)
+    p.add_argument("--model_dir", type=str, default="./model")
+    p.add_argument("--result_dir", type=str, default="./TrainResult")
     p.add_argument("--load_model", default=False, action="store_true")
     p.add_argument("--load_model_name", type=str, default="")
     p.add_argument("--stall", default=True, action="store_false")
@@ -167,24 +213,115 @@ def _evaluate_parser() -> argparse.ArgumentParser:
     p.add_argument("--width", "-w", "--chip_size", type=int, default=None)
     p.add_argument("--length", "-l", type=int, default=None)
     p.add_argument("--version", "-v", type=str, default=None)
-    p.add_argument("--show", default=False, action="store_true")
-    p.add_argument("--show_save", default=False, action="store_true")
-    p.add_argument("--b-degrade", dest="b_degrade", default=True)
-    p.add_argument("--per-degrade", dest="per_degrade", type=float, default=0)
+    p.add_argument("--n_parallel_envs", type=int, default=0,
+                   help="chips simulated in lockstep per rollout "
+                        "(0 = n_episodes)")
+    p.add_argument("--data_dir", type=str, default="",
+                   help="output root (default data-<env>/)")
+    p.add_argument("--mesh", type=str, default="auto",
+                   help="'auto' or 'off' (one device); a device count is "
+                        "not ported yet")
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   choices=["float32", "bf16"],
+                   help="net precision; bf16 is not ported yet")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
     return p
 
 
+def refuse_unported(args: Args) -> Args:
+    """Raise ``NotImplementedError`` for a flag the port parses but does not
+    implement yet, naming the ROADMAP.md item that will."""
+    multi_gpu = "ROADMAP.md Queue 1 item 11 (multi-GPU)"
+    if args.mesh not in ("auto", "off"):
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: {multi_gpu}; use --mesh auto or off")
+    if args.local_sampling:
+        raise NotImplementedError(f"--local_sampling: {multi_gpu}")
+    if args.vmap_seeds > 1:
+        raise NotImplementedError(
+            "--vmap_seeds: ROADMAP.md Queue 1 item 10 (seed farm)")
+    if args.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"--compute_dtype {args.compute_dtype}: ROADMAP.md Queue 1 "
+            "item 5 (bf16 nets)")
+    if args.remat:
+        raise NotImplementedError(
+            "--remat: ROADMAP.md Queue 1 item 6 (MEDA, activation "
+            "checkpointing)")
+    if args.fused_streams:
+        raise NotImplementedError(
+            "--fused_streams: ROADMAP.md Queue 4 (learner speed)")
+    return args
+
+
+def get_train_args(argv=None, pri: bool = True) -> Args:
+    """JAX ``get_train_args`` (config.py:200-274)."""
+    p = _common_parser()
+    p.add_argument("--n_steps", type=int, default=20,
+                   help="total env steps for training x100000")
+    p.add_argument("--exact_steps", type=int, default=0,
+                   help="exact env-step budget (bypasses x100000)")
+    p.add_argument("--ith_run", "-i", type=int, default=0)
+    p.add_argument("--replay_dir", type=str, default="")
+    p.add_argument("--evaluate_cycle", type=int, default=100000)
+    p.add_argument("--online_eval", default=True, action="store_false")
+    p.add_argument("--lr_decay", default=False, action="store_true",
+                   help="cosine lr decay to 5%% over training")
+    p.add_argument("--local_sampling", default=False, action="store_true",
+                   help="per-device replay sampling (not ported yet)")
+    p.add_argument("--vmap_seeds", type=int, default=0,
+                   help="seed farm (not ported yet)")
+    p.add_argument("--ckpt_replay", default=False, action="store_true",
+                   help="checkpoints also hold the replay ring and the "
+                        "training chips, for a resume identical to an "
+                        "uninterrupted run")
+    p.add_argument("--remat", default=False, action="store_true",
+                   help="activation checkpointing (not ported yet)")
+    p.add_argument("--fused_streams", default=False, action="store_true",
+                   help="one unroll for both streams (not ported yet)")
+    # eager torch has no scan to unroll: parsed for the JAX CLI's sake and
+    # ignored
+    p.add_argument("--scan_unroll", type=int, default=0)
+    p.add_argument("--param_ema", type=float, default=0.0,
+                   help="per-update EMA decay of the evaluated and saved "
+                        "params (0 = off)")
+    p.add_argument("--buffer_size", type=int, default=None,
+                   help="override the replay capacity (episodes)")
+    p.add_argument("--batch_size", type=int, default=None,
+                   help="override the learner minibatch (episodes)")
+    d = vars(p.parse_args(argv))
+    exact_steps = d.pop("exact_steps")
+    overrides = {k: v for k in ("buffer_size", "batch_size")
+                 if (v := d.pop(k)) is not None}
+    args = Args(**d)
+    args.apply_env_defaults()
+    args.load_hparams()
+    for k, v in overrides.items():   # the CLI beats the YAML
+        setattr(args, k, v)
+    args.n_steps = exact_steps or args.n_steps * 100000
+    refuse_unported(args)
+    if pri:
+        print("drop number:", args.drop_num)
+        print("chip size:", args.width, "*", args.length)
+        print("FOV size:", args.fov)
+    return args
+
+
 def get_evaluate_args(argv=None) -> Args:
-    ns = _evaluate_parser().parse_args(argv)
-    args = Args(**vars(ns))
+    p = _common_parser()
+    p.add_argument("--show", default=False, action="store_true")
+    p.add_argument("--show_save", default=False, action="store_true")
+    p.add_argument("--b-degrade", dest="b_degrade", default=True)
+    p.add_argument("--per-degrade", dest="per_degrade", type=float, default=0)
+    args = Args(**vars(p.parse_args(argv)))
     args.apply_env_defaults()
     # quirk parity: evaluation always loads the 4-droplet hyperparameters
-    # (JAX config.py:294-296), so the CRNN has 24 conv channels.
+    # (JAX config.py:294-296), so the CRNN has 24 conv channels; a loaded
+    # checkpoint's net_config overrides them
     args.load_hparams(drop_num=4)
-    return args
+    return refuse_unported(args)
 
 
 def make_env_from_args(args: Args):

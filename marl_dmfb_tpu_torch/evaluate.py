@@ -6,8 +6,10 @@ Usage::
         --evaluate_task=100 [--boards=10,20,50] [--device=cpu]
 
 Runs on the GPU unless ``--device cpu`` is given, and raises when CUDA is
-asked for and absent.  The port has no checkpoints yet, so the weights are
-random, drawn from ``--seed``; ``--load_model``, ``--show`` and
+asked for and absent.  ``--load_model`` evaluates a checkpoint of the
+port's trainer (``--load_model_name``, default ``final``, under
+``--data_dir``) with the net hyperparameters it was saved with; without it
+the weights are random, drawn from ``--seed``.  ``--show`` and
 ``--show_save`` raise ``NotImplementedError``.
 """
 
@@ -16,39 +18,26 @@ from __future__ import annotations
 import sys
 import time
 
-import torch
-
+from marl_dmfb_tpu_torch.checkpoint import load_model_tag
 from marl_dmfb_tpu_torch.config import get_evaluate_args, make_env_from_args
-from marl_dmfb_tpu_torch.trainer import Trainer
-
-
-def select_device(name: str) -> torch.device:
-    """The torch device for ``--device``; raises instead of falling back
-    when CUDA is asked for and absent."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: CUDA is not available here; pass "
-            "--device cpu to run the plain versions on the CPU")
-    # The JAX reference computes in full float32; TF32 convolutions and
-    # matmuls (cuDNN's default for convolutions) would change greedy argmax
-    # decisions.
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return device
+from marl_dmfb_tpu_torch.trainer import Trainer, restore_net_config
+from marl_dmfb_tpu_torch.utils.platform import select_device
 
 
 def evaluate_one(args) -> dict:
-    """Evaluate one board configuration; returns the metric dict."""
-    if args.load_model:
-        raise NotImplementedError(
-            "--load_model: the port has no checkpoint format yet; see "
-            "ROADMAP.md (Orbax -> npz exporter)")
+    """Evaluate one (board, model) configuration; returns the metric
+    dict."""
     if args.show or args.show_save:
         raise NotImplementedError(
             "--show/--show_save rendering is not ported yet; see ROADMAP.md")
     env = make_env_from_args(args)
-    return Trainer(env, args, eval_only=True).evaluate()
+    tag = load_model_tag(args) if args.load_model else None
+    if tag is not None:
+        restore_net_config(args, tag)
+    trainer = Trainer(env, args, eval_only=True)
+    if tag is not None:
+        trainer.load_model(tag, params_only=True)
+    return trainer.evaluate()
 
 
 def main(argv=None):

@@ -48,3 +48,52 @@ def from_flax_params(tree: Mapping) -> dict:
     sd["gru.bias_ih"] = _t(g["bi"])
     sd["gru.bias_hh"] = _t(g["bh"])
     return sd
+
+
+def _optax_states(node):
+    """The optax states inside an optax ``opt_state``, in order: the
+    NamedTuples themselves, or the name-keyed dicts that a restored Orbax
+    checkpoint holds in their place."""
+    if hasattr(node, "_asdict"):
+        fields = node._asdict()
+        if fields:
+            yield fields
+        return
+    if isinstance(node, dict):
+        if {"count", "mu", "nu"} & set(node):
+            yield node
+            return
+        node = list(node.values())
+    if isinstance(node, (list, tuple)):
+        for child in node:
+            yield from _optax_states(child)
+
+
+def from_flax_learner_state(tree: Mapping) -> dict:
+    """A JAX ``LearnerState`` (``params``, ``target_params``, ``opt_state``,
+    ``train_step``; a NamedTuple or its ``_asdict()``, leaves as numpy
+    arrays) -> the tree that ``VDNLearner.load_state`` takes.
+
+    Adam's ``count``/``mu``/``nu`` become ``count``/``mu``/``nu``,
+    rmsprop's ``nu`` becomes ``nu``, and a learning-rate schedule's
+    ``count`` becomes ``schedule_count``; the moments take the parameters'
+    layouts."""
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    count = lambda x: torch.tensor(int(np.asarray(x)), dtype=torch.int32)
+    agent = lambda p: {"agent": from_flax_params(p["agent"])}
+    opt = {}
+    for fields in _optax_states(tree["opt_state"]):
+        if "mu" in fields:
+            opt.update(count=count(fields["count"]), mu=agent(fields["mu"]),
+                       nu=agent(fields["nu"]))
+        elif "nu" in fields:
+            opt["nu"] = agent(fields["nu"])
+        elif "count" in fields:
+            opt["schedule_count"] = count(fields["count"])
+    return {
+        "params": agent(tree["params"]),
+        "target_params": agent(tree["target_params"]),
+        "opt_state": opt,
+        "train_step": count(tree["train_step"]),
+    }

@@ -91,7 +91,8 @@ class CRNNAgent(nn.Module):
     vector -> GRU -> Q head (JAX networks.py:171-224)."""
 
     def __init__(self, n_actions: int, obs_channels: int, fov: int,
-                 conv_channels: int, rnn_hidden: int = 128, vec_len: int = 2):
+                 conv_channels: int, rnn_hidden: int = 128, vec_len: int = 2,
+                 last_action: bool = True):
         super().__init__()
         self.obs_channels = obs_channels
         self.fov = fov
@@ -100,7 +101,8 @@ class CRNNAgent(nn.Module):
         for stride in conv_plan(fov):
             self.convs.append(TorchConv(in_ch, conv_channels, stride))
             in_ch = conv_channels
-        self.mlp1 = TorchDense(vec_len + n_actions, 10)
+        self.mlp1 = TorchDense(vec_len + (n_actions if last_action else 0),
+                               10)
         out = conv_out_size(fov)
         self.gru = TorchGRUCell(out * out * conv_channels + 10, rnn_hidden)
         self.fc1 = TorchDense(rnn_hidden, n_actions)
@@ -121,9 +123,11 @@ class CRNNAgent(nn.Module):
 
 def build_agent_net(args) -> nn.Module:
     """Pick the agent net from config (JAX networks.py:237-259; float32
-    only: ``compute_dtype=bf16`` is not ported yet)."""
+    only: ``compute_dtype=bf16`` is not ported yet).  The input ends with
+    the last action's one-hot unless ``args.last_action`` is off."""
+    n_last = args.n_actions if args.last_action else 0
     if args.net == "rnn":
-        return RNNAgent(input_dim=args.obs_shape[-1] + args.n_actions,
+        return RNNAgent(input_dim=args.obs_shape[-1] + n_last,
                         n_actions=args.n_actions,
                         rnn_hidden=args.rnn_hidden_dim)
     if args.net == "crnn":
@@ -134,6 +138,7 @@ def build_agent_net(args) -> nn.Module:
             conv_channels=args.hyper_hidden_dim,
             rnn_hidden=args.rnn_hidden_dim,
             vec_len=args.obs_shape[-2],
+            last_action=args.last_action,
         )
     raise ValueError(f"unknown net: {args.net!r}")
 

@@ -144,13 +144,24 @@ def step_batch(params: dmfb.DMFBParams, state: dmfb.DMFBState,
                actions: torch.Tensor, uniforms: torch.Tensor):
     """One DMFB transition of B chips: the kernel on CUDA, the plain version
     on the CPU.  Returns ``(new_state, StepOutput)``."""
-    global launches
     _check(params, state, actions, uniforms)
     device = state.pos.device
     if device.type == "cpu":
         return dmfb.step_core(params, state, actions, uniforms)
     if device.type != "cuda":
         raise ValueError(f"no dmfb_step kernel for device {device}")
+    # the launch sets the shared-memory attribute and reads the SM count of
+    # the current device, and takes the current stream: all must be the
+    # tensors' device, whichever device the caller has made current
+    with torch.cuda.device(device):
+        return _launch(params, state, actions, uniforms)
+
+
+def _launch(params: dmfb.DMFBParams, state: dmfb.DMFBState,
+            actions: torch.Tensor, uniforms: torch.Tensor):
+    """Launch the kernel on the current device, which holds the tensors."""
+    global launches
+    device = state.pos.device
     B, N = state.dist.shape
     tile = tile_chips(params, B)
     fn = kernel_library().dmfb_step_launch

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from marl_dmfb_tpu_torch.envs.registry import Env
+from marl_dmfb_tpu_torch.utils.platform import disable_tf32
 
 
 class RolloutResult(NamedTuple):
@@ -54,20 +55,27 @@ def _tree_where(cond_b: torch.Tensor, a, b):
 
 
 def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
-                 with_state: bool = False):
+                 with_state: bool = False, last_action: bool = True):
     """Build ``rollout(env_states, generator, epsilon, anneal_per_step,
     min_epsilon, greedy=False, noise=None) -> RolloutResult``.
 
-    Randomness comes from ``generator`` (on the states' device) unless
-    ``noise`` gives it, which lets tests replay the JAX package's draws."""
+    ``net`` is called as it is when the rollout runs, so a caller may
+    update its parameters in place between rollouts.  Its input ends with
+    the last action's one-hot when ``last_action`` is on.  Randomness comes
+    from ``generator`` (on the states' device) unless ``noise`` gives it,
+    which lets tests replay the JAX package's draws."""
     if with_state:
         raise NotImplementedError(
             "the QMIX global state is not ported yet; see ROADMAP.md")
+    disable_tf32()
     N, A, T = env.n_agents, env.n_actions, env.episode_limit
 
     def net_forward(obs, last_oh, h):
         B = obs.shape[0]
-        x = torch.cat([obs.float(), last_oh], dim=-1).reshape(B * N, -1)
+        x = obs.float()
+        if last_action:
+            x = torch.cat([x, last_oh], dim=-1)
+        x = x.reshape(B * N, -1)
         q, h2 = net(x, h.reshape(B * N, rnn_hidden))
         return q.view(B, N, A), h2.view(B, N, rnn_hidden)
 
@@ -79,9 +87,9 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
         obs0 = env.observe(states)
         B, device = obs0.shape[0], obs0.device
         f32 = dict(dtype=torch.float32, device=device)
-        eps = torch.tensor(epsilon, **f32)
-        anneal = torch.tensor(anneal_per_step, **f32)
-        min_eps = torch.tensor(min_epsilon, **f32)
+        eps = torch.as_tensor(epsilon, **f32)
+        anneal = torch.as_tensor(anneal_per_step, **f32)
+        min_eps = torch.as_tensor(min_epsilon, **f32)
 
         obs = obs0
         last = torch.zeros((B, N, A), **f32)

@@ -1,50 +1,344 @@
-"""Evaluation loop (the eval-only part of JAX ``trainer.py``).
+"""The training loop: rollout -> replay -> learn, with periodic evaluation,
+checkpoints and metric curves (JAX ``trainer.py``).
 
-``Trainer(env, args, eval_only=True)`` builds the agent net with seeded
-random weights (or takes weights through ``load_state_dict``), draws
-``evaluate_task`` evaluation chips, and ``evaluate()`` runs the greedy
-rollout over fresh tasks on them.  Training — replay, the VDN learner, the
-optimizer and checkpoints — is not ported yet.
+The experiment protocol is the JAX package's (the reference ``train.py``'s):
+train until ``total_env_steps`` env steps, evaluate and checkpoint every
+``evaluate_cycle`` steps, and keep the metric curves under the same file
+names.  Per cycle:
 
-Seeds: the JAX trainer splits ``PRNGKey(args.seed)`` into the parameter,
-env and evaluation keys.  Here ``args.seed`` seeds two explicit generators:
-a CPU one for the parameters (so the weights are the same on every device)
-and one on ``args.device`` for the chips' tasks and the env's draws.
+* one rollout collects B = ``args.rollout_batch`` episodes; on CUDA its
+  env step is the hand kernel ``csrc/dmfb_step.cu``;
+* epsilon anneals by B schedule steps per lockstep step ("step"), or by B
+  per cycle, clamped ("episode");
+* the episodes go into the replay ring, and the learner takes
+  ``max(1, round(train_time * B / n_episodes))`` updates, which keeps the
+  reference's updates per collected episode;
+* failed episodes count as ``episode_limit`` env steps.
+
+Seeds: ``args.seed`` seeds a CPU generator for the parameters (so the
+weights are the same on every device) and one on ``args.device`` for the
+evaluation chips, the training chips, the rollouts' draws and the
+learner's minibatches, in that order; a checkpoint holds its state in place
+of the JAX PRNG key.
 """
 
 from __future__ import annotations
 
+import copy
+import os
+import time
+
+import numpy as np
 import torch
 
+from marl_dmfb_tpu_torch import checkpoint
+from marl_dmfb_tpu_torch import replay as replay_lib
+from marl_dmfb_tpu_torch.algos.qlearn import VDNLearner
 from marl_dmfb_tpu_torch.config import Args
 from marl_dmfb_tpu_torch.envs.registry import Env
 from marl_dmfb_tpu_torch.models.networks import build_agent_net, init_params
 from marl_dmfb_tpu_torch.rollout import make_rollout, summarize_eval
+from marl_dmfb_tpu_torch.utils.platform import disable_tf32
+
+NET_CONFIG = ("net", "rnn_hidden_dim", "hyper_hidden_dim", "qmix_hidden_dim")
+
+
+def restore_net_config(args: Args, tag) -> Args:
+    """Take the net hyperparameters from a saved checkpoint, so that a model
+    trained under any hyperparameters evaluates (JAX trainer.py:146-156)."""
+    tree = checkpoint.load(checkpoint.model_state_path(args, tag))
+    for k, v in tree["net_config"].items():
+        setattr(args, k, v)
+    return args
+
+
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def _named(net: torch.nn.Module) -> dict:
+    return {"agent": dict(net.named_parameters())}
 
 
 class Trainer:
-    def __init__(self, env: Env, args: Args, eval_only: bool = True):
-        if not eval_only:
-            raise NotImplementedError(
-                "training (replay, VDN learner, Adam, checkpoints) is not "
-                "ported yet; see ROADMAP.md Queue 1 items 4-6")
+    def __init__(self, env: Env, args: Args, eval_only: bool = False):
+        """``eval_only`` builds the net and the evaluation chips only: no
+        learner, replay ring or training chips."""
         self.env = env
         self.args = args
+        self.eval_only = eval_only
         self.device = torch.device(args.device)
+        disable_tf32()
         args.update_env_info(env.env_info())
         self.net = build_agent_net(args)
         init_params(self.net, torch.Generator().manual_seed(args.seed))
-        self.net.to(self.device).eval()
+        self.net.to(self.device)
+        self.learner = None if eval_only else VDNLearner(args, self.net)
         self.generator = torch.Generator(device=self.device).manual_seed(
             args.seed)
         self.eval_states = env.init(args.evaluate_task, self.generator,
                                     self.device)
-        self.rollout = make_rollout(env, self.net, args.rnn_hidden_dim)
+        H = args.rnn_hidden_dim
+        self.rollout = make_rollout(env, self.net, H,
+                                    last_action=args.last_action)
+        self.B = B = args.rollout_batch
+        self.env_states = self.replay = None
+        if not eval_only:
+            self.env_states = env.init(B, self.generator, self.device)
+            self.replay = replay_lib.init_replay(
+                args.buffer_size, args.episode_limit, args.n_agents,
+                args.obs_shape[-1], device=self.device)
 
+        self.epsilon = args.epsilon
+        self.anneal_per_step = (
+            (args.epsilon - args.min_epsilon) / args.anneal_steps * B
+            if args.epsilon_anneal_scale == "step" else 0.0)
+        self.updates_per_rollout = max(
+            1, round(args.train_time * B / args.n_episodes))
+
+        # --param_ema: evaluation and checkpoints use a moving average of
+        # the params, updated once a cycle with the per-update decay
+        # compounded over the cycle's updates
+        self.ema_net = self.ema_rollout = None
+        if args.param_ema and not eval_only:
+            self.ema_net = copy.deepcopy(self.net).requires_grad_(False)
+            self.ema_rollout = make_rollout(env, self.ema_net, H,
+                                            last_action=args.last_action)
+            self.cycle_decay = float(args.param_ema) ** self.updates_per_rollout
+
+        # metric curves (reference train.py:21-25)
+        self.episode_rewards = []
+        self.episode_steps = []
+        self.episode_constraints = []
+        self.success_rate = []
+        self.time_cost = []
+        self.losses = []          # mean loss of each cycle (device tensors)
+        self.n_cycles = 0
+
+        self.save_path = os.path.join(
+            args.data_dir, args.result_dir.lstrip("./"), args.alg,
+            f"fov{args.fov}",
+            f"{args.width}by{args.length}-{args.drop_num}d{args.block_num}b")
+
+    # ------------------------------------------------------------------
     def evaluate(self) -> dict:
         """Greedy evaluation over fresh random tasks on the evaluation chips
-        (JAX trainer.py:300-315)."""
-        result = self.rollout(self.eval_states, self.generator, 0.0, 0.0,
-                              0.0, greedy=True)
+        (JAX trainer.py:300-315), with the EMA params under --param_ema."""
+        rollout = self.rollout if self.ema_net is None else self.ema_rollout
+        result = rollout(self.eval_states, self.generator, 0.0, 0.0, 0.0,
+                         greedy=True)
         self.eval_states = result.env_states
         return summarize_eval(result)
+
+    def _tree(self) -> dict:
+        """The checkpoint tree, its tensors live (the learner's are
+        copies)."""
+        a = self.args
+        tree = {
+            "learner": self.learner.state(),
+            "epsilon": torch.as_tensor(self.epsilon,
+                                       dtype=torch.float32).cpu(),
+            "generator": self.generator.get_state(),
+            "net_config": {k: getattr(a, k) for k in NET_CONFIG},
+        }
+        if self.ema_net is not None:
+            tree["ema"] = _named(self.ema_net)
+        if a.ckpt_replay:
+            tree["replay"] = {"data": self.replay.data,
+                              "cursor": self.replay.cursor,
+                              "size": self.replay.size}
+            tree["env_states"] = self.env_states._asdict()
+        return tree
+
+    def save_model(self, tag) -> str:
+        """Checkpoint the full training state (JAX trainer.py:317-350)."""
+        if self.learner is None:
+            raise RuntimeError("Trainer was built with eval_only=True")
+        path = checkpoint.model_state_path(self.args, tag)
+        checkpoint.save(path, _cpu(self._tree()))
+        return path
+
+    @torch.no_grad()
+    def _set_params(self, params: dict, target: dict):
+        for k, p in self.net.named_parameters():
+            p.copy_(params["agent"][k])
+        if self.learner is not None:
+            for k, p in self.learner.target_net.named_parameters():
+                p.copy_(target["agent"][k])
+
+    def load_model(self, tag, params_only: bool = False):
+        """Restore a checkpoint (JAX trainer.py:352-454).
+
+        ``params_only`` takes the params and target params only (the EMA,
+        where the checkpoint has one), which is what evaluation needs, and
+        drops this process's EMA, so that evaluation scores exactly the
+        checkpoint's weights.  A full restore resumes training: it requires
+        the checkpoint to have been saved with this run's --param_ema and
+        --ckpt_replay, and restores the optimizer, epsilon and the
+        generator, and under --ckpt_replay the replay ring and the training
+        chips."""
+        path = checkpoint.model_state_path(self.args, tag)
+        tree = checkpoint.load(path)
+        params = _named(self.net)
+        if params_only:
+            if "ema" in tree:
+                agent = checkpoint.restructure(params, tree["ema"], path)
+                self._set_params(agent, agent)
+            else:
+                learner = tree["learner"]
+                self._set_params(
+                    checkpoint.restructure(params, learner["params"], path),
+                    checkpoint.restructure(params, learner["target_params"],
+                                           path))
+                if self.learner is not None:
+                    self.learner.train_step = int(learner["train_step"])
+            self.ema_net = None
+            self.epsilon = tree["epsilon"]
+            return
+        if self.learner is None:
+            raise RuntimeError("Trainer was built with eval_only=True")
+        for flag, key, on in (("param_ema", "ema", self.ema_net is not None),
+                              ("ckpt_replay", "replay",
+                               bool(self.args.ckpt_replay))):
+            if on != (key in tree):
+                raise ValueError(
+                    f"{path} was saved with --{flag} "
+                    f"{'on' if key in tree else 'off'}, and this run has it "
+                    f"{'on' if on else 'off'}; resume with the same "
+                    f"--{flag}")
+        tree = checkpoint.restructure(self._tree(), tree, path)
+        self.learner.load_state(tree["learner"])
+        if self.ema_net is not None:
+            with torch.no_grad():
+                for k, p in self.ema_net.named_parameters():
+                    p.copy_(tree["ema"]["agent"][k])
+        if "replay" in tree:
+            r = tree["replay"]
+            self.replay = replay_lib.ReplayState(r["data"], r["cursor"],
+                                                 r["size"])
+            self.env_states = type(self.env_states)(**tree["env_states"])
+        self.epsilon = tree["epsilon"]
+        self.generator.set_state(tree["generator"])
+
+    # ------------------------------------------------------------------
+    def train_cycle(self) -> int:
+        """One collect-and-learn cycle; returns the env steps it counts."""
+        if self.learner is None:
+            raise RuntimeError("Trainer was built with eval_only=True")
+        a = self.args
+        result = self.rollout(self.env_states, self.generator, self.epsilon,
+                              self.anneal_per_step, a.min_epsilon)
+        self.env_states = result.env_states
+        if a.epsilon_anneal_scale == "episode":
+            # the reference decrements once per generated episode
+            # (rollout.py:126-127 with train.py:59-66)
+            dec = self.B * (a.epsilon - a.min_epsilon) / a.anneal_steps
+            self.epsilon = float(np.float32(
+                max(a.min_epsilon, float(self.epsilon) - dec)))
+        else:
+            self.epsilon = result.epsilon
+        self.replay = replay_lib.store(self.replay, result.episodes)
+        self.losses.append(self.learner.learn_many(
+            self.replay, self.updates_per_rollout, self.generator))
+        if self.ema_net is not None:
+            d = self.cycle_decay
+            with torch.no_grad():
+                for e, p in zip(self.ema_net.parameters(),
+                                self.net.parameters()):
+                    e.copy_(d * e + (1.0 - d) * p)
+        self.n_cycles += 1
+        return int(result.steps.sum())
+
+    def _append(self, m: dict):
+        self.episode_rewards.append(m["reward"])
+        self.episode_steps.append(m["steps"])
+        self.episode_constraints.append(m["constraints"])
+        self.success_rate.append(m["success_rate"])
+
+    def _record(self, m: dict):
+        self._append(m)
+        self.plot()
+        self.save_curves()
+
+    def run(self, online_evaluate: bool = True) -> dict:
+        """The main loop (JAX trainer.py:494-563, reference
+        train.py:32-93)."""
+        args = self.args
+        time_steps, evaluate_steps = 0, -1
+        start = time.time()
+        while time_steps < args.total_env_steps:
+            if time_steps // args.evaluate_cycle > evaluate_steps:
+                evaluate_steps += 1
+                self.time_cost.append(time.time() - start)
+                self.save_model(evaluate_steps)
+                if online_evaluate:
+                    self._record(self.evaluate())
+                print(f"Run {args.ith_run}, time_steps {time_steps}, "
+                      f"evaluate {evaluate_steps}, "
+                      f"elapsed {self.time_cost[-1]:.1f}s"
+                      + (f", success {self.success_rate[-1]:.3f}"
+                         if online_evaluate and self.success_rate else ""),
+                      flush=True)
+            time_steps += self.train_cycle()
+        self.save_model("final")
+        self.time_cost.append(time.time() - start)
+        if online_evaluate:
+            self._record(self.evaluate())
+        else:
+            self.evaluate_total()
+        return {
+            "rewards": self.episode_rewards,
+            "steps": self.episode_steps,
+            "constraints": self.episode_constraints,
+            "success_rate": self.success_rate,
+            "runtime": self.time_cost,
+            "loss": torch.stack(self.losses).tolist() if self.losses else [],
+        }
+
+    def evaluate_total(self):
+        """Reload every saved checkpoint and evaluate it (reference
+        train.py:96-118; the ``--online_eval`` off path)."""
+        args = self.args
+        for series in (self.episode_rewards, self.episode_steps,
+                       self.episode_constraints, self.success_rate):
+            series.clear()
+        tags = list(range(args.total_env_steps // args.evaluate_cycle))
+        for tag in tags + ["final"]:
+            try:
+                self.load_model(tag, params_only=True)
+            except FileNotFoundError:
+                continue
+            m = self.evaluate()
+            self._append(m)
+            print(f"checkpoint {tag}: success {m['success_rate']:.3f}",
+                  flush=True)
+        self.plot()
+        self.save_curves()
+
+    # ------------------------------------------------------------------
+    def plot(self):
+        """The JAX package draws the curves into ``plt_<run>.png`` with
+        matplotlib, which the port does not import (the GPU machine has
+        none); the ``.npy`` curves of :meth:`save_curves` are the record."""
+        print(f"plot: plt_{self.args.ith_run}.png not written (the port "
+              "draws no plots); the .npy curves are in "
+              f"{self.save_path}", flush=True)
+
+    def save_curves(self):
+        """The curves as ``.npy`` files with the reference's names
+        (train.py:145-158)."""
+        a = self.args
+        prefix = (f"{a.alg}_env({a.width},{a.length},{a.drop_num},"
+                  f"{a.block_num},{a.fov},{a.stall})")
+        num = a.ith_run
+        os.makedirs(self.save_path, exist_ok=True)
+        for name, series in [
+            (f"{prefix}Rewards_{num}", self.episode_rewards),
+            (f"{prefix}steps_{num}", self.episode_steps),
+            (f"{prefix}constraints_{num}", self.episode_constraints),
+            (f"{prefix}success_rate_{num}", self.success_rate),
+            (f"{prefix}runtime_{num}", self.time_cost),
+        ]:
+            np.save(os.path.join(self.save_path, name), np.asarray(series))

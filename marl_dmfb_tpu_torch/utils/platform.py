@@ -1,0 +1,31 @@
+"""The torch device and the float32 rules of the port.
+
+The JAX reference computes the nets in full float32.  cuDNN runs
+convolutions in TF32 unless told otherwise, which changes greedy argmax
+decisions and the learner's gradients, so every place that runs a net on
+CUDA calls :func:`disable_tf32`: the trainer, the learner, the rollout and
+the entry points through :func:`select_device`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def disable_tf32() -> None:
+    """Turn off TF32 in cuDNN's convolutions and cuBLAS's matmuls (both are
+    process-wide flags, and have no effect on the CPU)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def select_device(name: str) -> torch.device:
+    """The torch device for ``--device``; raises instead of falling back
+    when CUDA is asked for and absent."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: CUDA is not available here; pass "
+            "--device cpu to run the plain versions on the CPU")
+    disable_tf32()
+    return device

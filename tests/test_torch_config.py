@@ -56,6 +56,6 @@ def test_unported_envs_and_modes_raise():
         make_env("meda")
     with pytest.raises(ValueError):
         make_env("dmfb", version="0.2")
-    args = tconfig.get_evaluate_args(["dmfb", "--device=cpu"])
+    args = tconfig.get_evaluate_args(["dmfb", "--device=cpu", "--alg=qmix"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(tconfig.make_env_from_args(args), args, eval_only=False)

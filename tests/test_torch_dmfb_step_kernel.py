@@ -9,6 +9,8 @@ which has no JAX, can run the ``cuda`` test of this file:
 ``python -m pytest --noconftest -m cuda tests/test_torch_dmfb_step_kernel.py``.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -254,3 +256,54 @@ def test_cuda_kernel_matches_plain(width, length, n, blocks, fov, B, offset):
             torch.testing.assert_close(getattr(ok, f), getattr(op, f),
                                        rtol=0, atol=1e-5)
         s = sk
+
+
+def test_launch_runs_under_the_tensors_device(monkeypatch):
+    """The launch sets the kernel's shared-memory attribute and reads the SM
+    count of the current device and takes its stream, so the wrapper makes
+    the tensors' device current around it (here with a stand-in for
+    ``torch.cuda.device`` and for the launch)."""
+    events = []
+
+    class Guard:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            events.append(("enter", self.device))
+
+        def __exit__(self, *exc):
+            events.append(("exit", self.device))
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(dmfb_step, "_check", lambda *a: None)
+    monkeypatch.setattr(dmfb_step, "_launch",
+                        lambda *a: events.append(("launch",)) or "stepped")
+    card1 = torch.device("cuda", 1)
+    state = tdmfb.DMFBState(*[torch.empty(0, device="meta")] * 10)
+    state = state._replace(pos=types.SimpleNamespace(device=card1))
+    assert dmfb_step.step_batch(tdmfb.DMFBParams(), state, None,
+                                None) == "stepped"
+    assert events == [("enter", card1), ("launch",), ("exit", card1)]
+
+
+@pytest.mark.cuda
+def test_cuda_launch_follows_the_tensors_device():
+    """Tensors on the second card while the first is current: the kernel
+    runs on the second and equals the plain version there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    p = tdmfb.DMFBParams(n_droplets=4, n_blocks=2)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    s = tdmfb.DMFBState(*(t.to("cuda:1") for t in _card_state(p, 1000, g, 0)))
+    a = torch.randint(0, 5, (1000, 4), dtype=torch.int32, device="cuda:1")
+    u = torch.rand((1000, 4), device="cuda:1")
+    torch.cuda.set_device(0)
+    sk, ok = dmfb_step.step_batch(p, s, a, u)
+    sp, op = tdmfb.step_core(p, s, a, u)
+    torch.cuda.synchronize("cuda:1")
+    assert sk.pos.device == torch.device("cuda", 1)
+    for f in ("pos", "dist", "usage", "step_count", "cum_constraints"):
+        assert torch.equal(getattr(sk, f), getattr(sp, f)), f
+    for f in ("obs", "dones", "terminated", "constraints", "success"):
+        assert torch.equal(getattr(ok, f), getattr(op, f)), f

@@ -1,5 +1,6 @@
 """The port stands alone: ``marl_dmfb_tpu_torch``, ``chip_smoke.py`` and the
-card's tools (``tools/profile_torch_rollout.py``, ``tools/time_dmfb_step.py``)
+card's tools (``tools/profile_torch_rollout.py``,
+``tools/profile_torch_learn.py``, ``tools/time_dmfb_step.py``)
 import nothing of JAX, its libraries, YAML, matplotlib or the JAX package
 (the GPU machine has none of them), and the entry point runs on the card
 unless told otherwise, raising where there is none."""
@@ -15,6 +16,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "yaml",
              "matplotlib", "marl_dmfb_tpu"}
 PORT_FILES = sorted((ROOT / "marl_dmfb_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_rollout.py",
+    ROOT / "tools" / "profile_torch_learn.py",
     ROOT / "tools" / "time_dmfb_step.py"]
 
 
@@ -44,7 +46,15 @@ def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for want in ("chip_smoke.py", "marl_dmfb_tpu_torch/envs/dmfb.py",
                  "marl_dmfb_tpu_torch/ops/dmfb_step.py",
-                 "marl_dmfb_tpu_torch/evaluate.py"):
+                 "marl_dmfb_tpu_torch/evaluate.py",
+                 "marl_dmfb_tpu_torch/replay.py",
+                 "marl_dmfb_tpu_torch/algos/qlearn.py",
+                 "marl_dmfb_tpu_torch/checkpoint.py",
+                 "marl_dmfb_tpu_torch/trainer.py",
+                 "marl_dmfb_tpu_torch/train.py",
+                 "marl_dmfb_tpu_torch/models/convert.py",
+                 "marl_dmfb_tpu_torch/utils/platform.py",
+                 "tools/profile_torch_learn.py"):
         assert want in names
 
 
@@ -79,9 +89,18 @@ def test_evaluate_runs_on_cpu_when_asked():
     assert [size for size, _ in rows] == [10, 12]
 
 
-@pytest.mark.parametrize("flag", ["--load_model", "--show", "--show_save"])
+@pytest.mark.parametrize("flag", ["--show", "--show_save"])
 def test_unported_evaluate_options_raise(flag):
     from marl_dmfb_tpu_torch import evaluate
 
     with pytest.raises(NotImplementedError):
         evaluate.main(["dmfb", "--evaluate_task=2", "--device=cpu", flag])
+
+
+def test_evaluate_load_model_without_checkpoint_raises(tmp_path):
+    from marl_dmfb_tpu_torch import evaluate
+
+    want = tmp_path / "model" / "vdn" / "fov9" / "0_final_state.pt"
+    with pytest.raises(FileNotFoundError, match=f"no checkpoint at {want}"):
+        evaluate.main(["dmfb", "--evaluate_task=2", "--device=cpu",
+                       "--load_model", f"--data_dir={tmp_path}"])

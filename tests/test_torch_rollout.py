@@ -19,34 +19,12 @@ from marl_dmfb_tpu.rollout import summarize_eval as jsummarize
 from marl_dmfb_tpu_torch.envs import make_env as tmake_env
 from marl_dmfb_tpu_torch.models.convert import from_flax_params
 from marl_dmfb_tpu_torch.models.networks import CRNNAgent as TCRNN
-from marl_dmfb_tpu_torch.rollout import RolloutNoise
 from marl_dmfb_tpu_torch.rollout import make_rollout as tmake_rollout
 from marl_dmfb_tpu_torch.rollout import summarize_eval as tsummarize
-from tests.torch_port_util import REWARD_ATOL, to_torch_state
+from tests.torch_port_util import REWARD_ATOL, replay_noise, to_torch_state
 
 ARTIFACT = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                         "artifacts", "dmfb_10x10_4d_fov9_vdn")
-
-
-def _replay_noise(key, reset_states, T, B, N, A):
-    """The draws JAX's rollout makes from ``key`` (actions) and from each
-    chip's state key (move success, rollout.py:166-175, dmfb.py:606-607),
-    as (T, B, N) tensors."""
-    rand_a, explore_u, env_u = [], [], []
-    k = key
-    keys = reset_states.key
-    split_env = jax.jit(jax.vmap(jax.random.split))
-    draw_env = jax.jit(jax.vmap(lambda s: jax.random.uniform(s, (N,))))
-    for _ in range(T):
-        k, k_rand, k_expl = jax.random.split(k, 3)
-        rand_a.append(np.array(
-            jax.random.randint(k_rand, (B, N), 0, A, jnp.int32)))
-        explore_u.append(np.array(jax.random.uniform(k_expl, (B, N))))
-        pair = split_env(keys)
-        keys, subs = pair[:, 0], pair[:, 1]
-        env_u.append(np.array(draw_env(subs)))
-    t = lambda xs: torch.from_numpy(np.stack(xs))
-    return RolloutNoise(t(rand_a), t(explore_u), t(env_u))
 
 
 def _run_both(params_np, jenv, tenv, jnet, tnet, states, key, eps, anneal,
@@ -60,7 +38,7 @@ def _run_both(params_np, jenv, tenv, jnet, tnet, states, key, eps, anneal,
                  jnp.float32(anneal), jnp.float32(min_eps), greedy=greedy)
     reset_states = jax.jit(jax.vmap(jenv.reset))(states)
     B = reset_states.pos.shape[0]
-    noise = _replay_noise(key, reset_states, T, B, N, A)
+    noise = replay_noise(key, reset_states, T, B, N, A)
     t_reset = to_torch_state(reset_states)
     tenv = tenv._replace(reset=lambda s, g: t_reset)
     tnet.load_state_dict(from_flax_params(params_np))

@@ -11,6 +11,7 @@ import torch
 
 import marl_dmfb_tpu.envs.dmfb as jdmfb
 from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
+from marl_dmfb_tpu_torch.rollout import RolloutNoise
 
 # integer/bool fields held bitwise equal; float fields within REWARD_ATOL
 STATE_EXACT = ("pos", "start", "goal", "dist", "block_mask", "usage",
@@ -75,3 +76,24 @@ def assert_step_equal(jstate, jout, tstate, tout, where=""):
         np.testing.assert_allclose(
             np.array(getattr(jout, f)), getattr(tout, f).cpu().numpy(),
             rtol=0, atol=REWARD_ATOL, err_msg=f"out.{f} {where}")
+
+
+def replay_noise(key, reset_states, T, B, N, A):
+    """The draws JAX's rollout makes from ``key`` (actions) and from each
+    chip's state key (move success, rollout.py:166-175, dmfb.py:606-607),
+    as (T, B, N) tensors."""
+    rand_a, explore_u, env_u = [], [], []
+    k = key
+    keys = reset_states.key
+    split_env = jax.jit(jax.vmap(jax.random.split))
+    draw_env = jax.jit(jax.vmap(lambda s: jax.random.uniform(s, (N,))))
+    for _ in range(T):
+        k, k_rand, k_expl = jax.random.split(k, 3)
+        rand_a.append(np.array(
+            jax.random.randint(k_rand, (B, N), 0, A, jnp.int32)))
+        explore_u.append(np.array(jax.random.uniform(k_expl, (B, N))))
+        pair = split_env(keys)
+        keys, subs = pair[:, 0], pair[:, 1]
+        env_u.append(np.array(draw_env(subs)))
+    t = lambda xs: torch.from_numpy(np.stack(xs))
+    return RolloutNoise(t(rand_a), t(explore_u), t(env_u))
