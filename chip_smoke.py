@@ -14,9 +14,10 @@ Phases, each printing its seconds:
    bool and usage outputs bitwise equal, rewards within 1e-5) at three
    shapes, three chained steps each;
 3. drive the evaluate entry point (DMFB 10x10, 4 droplets, fov 9, CRNN at
-   the evaluation width, seeded random weights) and check that the env step
-   went through the kernel once per step (T = 40 launches); then run a small
-   greedy rollout on the card and on the CPU from the same chips and draws,
+   the evaluation width) on the committed export of the JAX package's
+   trained 10x10-4d policy, and check that the env step went through the
+   kernel once per step (T = 40 launches); then run a small greedy rollout
+   of that policy on the card and on the CPU from the same chips and draws,
    which must give the same episodes;
 4. time one epsilon-greedy actor rollout at B = 16384 chips, checking that
    it too launched the kernel once per step, and the kernel against its
@@ -32,10 +33,20 @@ Phases, each printing its seconds:
    update count is 32 a cycle, that the target moved and differs from the
    params, and that the final checkpoint reloads bitwise through the
    evaluate entry point; hold 3 learner updates on the card against the same
-   updates on the CPU; and time an update, a cycle and the env steps.
+   updates on the CPU; and time an update, a cycle and the env steps;
+6. trained policies on the card, from the JAX package's artifacts exported
+   to ``tests/fixtures/torch_weights/`` (numpy only): the 20x20 flagship's
+   EMA weights evaluated greedily on 20x20 and 50x50, the bf16 policy under
+   ``--compute_dtype bf16`` on 50x50 and the v0.1 2-droplet policy on 10x10,
+   100 tasks each, each held to its success rate in ``artifacts/README.md``
+   less ``SUCCESS_SLACK``; the kernel's no-observation mode (the v0.1
+   step's transition) against its plain version at B = 16384 and B = 100,
+   and timed; a bf16 forward on the card against the CPU's, and timed
+   beside float32; and a 2-epoch x 20-task degradation sweep on 50x50.
 
-The kernel JSON line (the kernel's numbers) and a training JSON line come
-before the last, ``{"ok": true, "device": {...}}``.  Any failed check
+The kernel JSON line (the kernel's numbers), a training JSON line and a
+trained-policies JSON line come before the last, ``{"ok": true, "device":
+{...}}``.  Any failed check
 raises, so the exit code is non-zero and no result line is printed.  Exits
 non-zero at once where CUDA is unavailable.  Writes nothing but the kernel
 build and the training run's checkpoints and curves under ``build/``.
@@ -50,6 +61,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -78,6 +90,28 @@ PARAM_ATOL = 1e-5
 NOISE = 1e-6
 TIMED_UPDATES = 10
 TIMED_CYCLES = 3
+# phase 6: the committed exports of JAX-trained policies, and the success
+# rates artifacts/README.md records for them (greedy, 100 tasks); a rate
+# below the record less SUCCESS_SLACK (about 4 binomial sigma at 100 tasks)
+# fails
+WEIGHTS = os.path.join(ROOT, "tests", "fixtures", "torch_weights")
+POLICY_4D = os.path.join(WEIGHTS, "dmfb_10x10_4d_fov9_vdn")
+SUCCESS_SLACK = 0.08
+TRAINED = [
+    # (name, export, board, extra flags, recorded success)
+    ("flagship_20x20", "dmfb_20x20_4d_fov9_vdn_b64", 20, [], 0.96),
+    ("flagship_50x50", "dmfb_20x20_4d_fov9_vdn_b64", 50, [], 1.00),
+    ("bf16_50x50", "dmfb_20x20_4d_bf16", 50, ["--compute_dtype=bf16"], 1.00),
+    ("v01_2d_10x10", "dmfb_10x10_2d_fov9_vdn_v01", 10,
+     ["--version=0.1", "--drop_num=2"], 1.00),
+]
+# the bf16 forward on the card against the CPU's: the tolerances of
+# tests/test_torch_bf16.py (Q-values, hidden state)
+BF16_Q_ATOL = 1e-2
+BF16_H_ATOL = 2e-2
+BF16_ROWS = 8192                  # rows compared, card against CPU
+BF16_TIMED_ROWS = KERNEL_B * 4    # one actor step's rows: B chips x N agents
+SWEEP = dict(board=50, epochs=2, tasks=20)
 
 
 def log(msg):
@@ -117,14 +151,19 @@ def ptxas_summary(log_text):
     return out
 
 
-def bound(dmfb_step, params, batch):
+def bound(dmfb_step, params, batch, observe=True):
     """(bound_ms, bound_by, bytes, ops) of one step of ``batch`` chips: the
     least bytes (``dmfb_step.min_bytes``) over the HBM rate against the
     integer operations over the scalar rate: 4 per distance test (2 kinds
-    per droplet pair), one per observation byte and per usage cell."""
+    per droplet pair), one per observation byte (none in the
+    no-observation mode) and per usage cell."""
     n = params.n_droplets
-    n_bytes = dmfb_step.min_bytes(params, batch)
-    n_ops = batch * (8 * n * (n - 1) + n * params.obs_dim
+    if observe:
+        n_bytes = dmfb_step.min_bytes(params, batch)
+    else:
+        n_bytes = dmfb_step.min_bytes(params, batch, observe=False)
+    obs_row = 3 * params.fov * params.fov + 2 if observe else 0
+    n_ops = batch * (8 * n * (n - 1) + n * obs_row
                      + params.width * params.length)
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = n_ops / PEAK_SCALAR_OPS_PER_S * 1e3
@@ -188,22 +227,28 @@ def step_inputs(params, batch, generator):
     return a, u
 
 
-def compare_kernel(tdmfb, dmfb_step, params, batch, generator):
-    """Three chained steps, kernel vs plain; returns the largest absolute
-    difference over all outputs."""
+def compare_kernel(tdmfb, dmfb_step, params, batch, generator,
+                   observe=True):
+    """Three chained steps, kernel vs plain (the transition alone without
+    ``observe``); returns the largest absolute difference over all
+    outputs."""
     s = random_states(tdmfb, params, batch, generator)
     worst = 0.0
+    kernel = dmfb_step.step_batch if observe else dmfb_step.transition_batch
+    plain = tdmfb.step_core if observe else tdmfb.transition
+    outs = ("obs",) * observe + ("dones", "terminated", "constraints",
+                                 "success", "rewards", "team_reward")
     for _ in range(3):
         a, u = step_inputs(params, batch, generator)
-        sk, ok = dmfb_step.step_batch(params, s, a, u)
-        sp, op = tdmfb.step_core(params, s, a, u)
+        sk, ok = kernel(params, s, a, u)
+        sp, op = plain(params, s, a, u)
         torch.cuda.synchronize()
+        if not observe and ok.obs is not None:
+            raise AssertionError("the no-observation mode wrote observations")
         for name, x, y in (
                 [(f, getattr(sk, f), getattr(sp, f)) for f in
                  ("pos", "dist", "usage", "step_count", "cum_constraints")]
-                + [(f, getattr(ok, f), getattr(op, f)) for f in
-                   ("obs", "dones", "terminated", "constraints", "success",
-                    "rewards", "team_reward")]):
+                + [(f, getattr(ok, f), getattr(op, f)) for f in outs]):
             diff = (x.double() - y.double()).abs().max().item()
             worst = max(worst, diff)
             if name in ("rewards", "team_reward"):
@@ -250,6 +295,188 @@ def compare_learner(VDNLearner, build_agent_net, args, state, batch):
     return loss_rel, clean, worst, card
 
 
+def _agent_rows(rows, generator):
+    """Rows of the CRNN's flat input (integer pixels, an integer direction,
+    a last-action one-hot) and hidden states."""
+    x = torch.cat([
+        torch.randint(0, 5, (rows, 3 * 81), generator=generator),
+        torch.randint(-6, 7, (rows, 2), generator=generator),
+        torch.nn.functional.one_hot(
+            torch.randint(0, 5, (rows,), generator=generator), 5)],
+        dim=1).float()
+    return x, torch.randn((rows, 128), generator=generator) * 0.5
+
+
+def card_vs_cpu_bf16(net_cls, params, generator):
+    """A bf16 CRNN forward of ``BF16_ROWS`` random rows on the card and on
+    the CPU from the same weights (the bf16 export's) and inputs; returns
+    the largest differences of the Q-values and the hidden states, the
+    greedy actions' agreement, and the card's device time of a forward of
+    ``BF16_TIMED_ROWS`` rows in bf16 and in float32 (CUDA graphs,
+    ``device_ms``)."""
+    rows = BF16_ROWS
+    x, h = _agent_rows(rows, generator)
+    nets = {}
+    for dtype in (torch.bfloat16, None):
+        for dev in ("cpu", "cuda"):
+            net = net_cls(5, 3, 9, 24, compute_dtype=dtype)
+            net.load_state_dict(params)
+            nets[dtype, dev] = net.to(dev).eval()
+    with torch.no_grad():
+        q_cpu, h_cpu = nets[torch.bfloat16, "cpu"](x, h)
+        q_card, h_card = nets[torch.bfloat16, "cuda"](x.cuda(), h.cuda())
+    q_card, h_card = q_card.cpu(), h_card.cpu()
+    xc, hc = (t.cuda() for t in _agent_rows(BF16_TIMED_ROWS, generator))
+    ms = {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (None, "float32")):
+        net = nets[dtype, "cuda"]
+        with torch.no_grad():
+            ms[name] = device_ms([lambda n=net: n(xc, hc)], iters=20)
+    return dict(
+        q_diff=float((q_card - q_cpu).abs().max()),
+        h_diff=float((h_card - h_cpu).abs().max()),
+        action_agreement=float(
+            (q_card.argmax(1) == q_cpu.argmax(1)).float().mean()),
+        rows=rows, timed_rows=BF16_TIMED_ROWS, bf16_ms=ms["bf16"],
+        float32_ms=ms["float32"])
+
+
+def trained_policies(smi) -> dict:
+    """Phase 6: the JAX package's trained policies on the card (module
+    docstring); raises on any failed check, returns the numbers."""
+    from marl_dmfb_tpu_torch import eva_degrade, evaluate
+    from marl_dmfb_tpu_torch.checkpoint import load
+    from marl_dmfb_tpu_torch.config import (get_evaluate_args,
+                                            make_env_from_args)
+    from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
+    from marl_dmfb_tpu_torch.models.networks import CRNNAgent
+    from marl_dmfb_tpu_torch.ops import dmfb_step
+    from marl_dmfb_tpu_torch.trainer import restore_net_config
+
+    t6 = time.perf_counter()
+    out = {"policies": {}, "phase_s": {}}
+    launches_no_obs = 0
+    for name, export, board, flags, recorded in TRAINED:
+        t0 = time.perf_counter()
+        argv = (["dmfb", "--drop_num=4", "--fov=9", f"--chip_size={board}",
+                 "--evaluate_task=100", "--load_model_name=0_final",
+                 f"--data_dir={os.path.join(WEIGHTS, export)}"] + flags)
+        dmfb_step.launches = dmfb_step.launches_no_obs = 0
+        m = evaluate.main(argv)
+        launches, no_obs = dmfb_step.launches, dmfb_step.launches_no_obs
+        args = get_evaluate_args(argv)
+        restore_net_config(args, "final")
+        T = make_env_from_args(args).episode_limit
+        v01 = args.version == "0.1"
+        if launches != T or no_obs != (T if v01 else 0):
+            raise AssertionError(
+                f"{name}: {launches} kernel launches ({no_obs} without "
+                f"observations), expected T = {T}"
+                + (" without observations" if v01 else ""))
+        launches_no_obs += no_obs
+        floor = recorded - SUCCESS_SLACK
+        seconds = time.perf_counter() - t0
+        log(f"phase 6: [{smi}] {name} ({export}, {board}x{board}"
+            f"{', ' + ' '.join(flags) if flags else ''}): success "
+            f"{m['success_rate']:.2f} (recorded {recorded:.2f}, floor "
+            f"{floor:.2f}), steps {m['steps']:.2f}, reward "
+            f"{m['reward']:.4f}, kernel launches {launches} "
+            f"({no_obs} without observations), {seconds:.2f} s")
+        if not m["success_rate"] >= floor - 1e-9:
+            raise AssertionError(f"{name}: success {m['success_rate']} "
+                                 f"below {floor}")
+        out["policies"][name] = dict(m, recorded=recorded, floor=floor,
+                                     launches=launches, seconds=seconds)
+    out["launches_no_obs"] = launches_no_obs
+
+    # the no-observation mode (a v0.1 step's transition) against its plain
+    # version, and its times, at the v0.1 policy's configuration
+    t0 = time.perf_counter()
+    p = tdmfb.DMFBParams(width=10, length=10, n_droplets=2, fov=9,
+                         obs_version="v0.1")
+    g = torch.Generator(device="cuda").manual_seed(606)
+    no_obs = {"max_abs_err": 0.0}
+    for batch in (KERNEL_B, EVAL_B):
+        err = compare_kernel(tdmfb, dmfb_step, p, batch, g, observe=False)
+        no_obs["max_abs_err"] = max(no_obs["max_abs_err"], err)
+        sets = [(random_states(tdmfb, p, batch, g), *step_inputs(p, batch, g))
+                for _ in range(4)]
+        ms = device_ms([lambda x=x: dmfb_step.transition_batch(p, *x)
+                        for x in sets])
+        plain_ms = device_ms([lambda x=x: tdmfb.transition(p, *x)
+                              for x in sets])
+        bound_ms, bound_by, n_bytes, n_ops = bound(dmfb_step, p, batch,
+                                                   observe=False)
+        no_obs[batch] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, share=bound_ms / ms,
+                             tile=dmfb_step.tile_chips(p, batch, False))
+        log(f"phase 6: [{smi}] dmfb_step without observations, 10x10, 2 "
+            f"droplets, B={batch} ({no_obs[batch]['tile']} chips a tile): "
+            f"== plain transition over 3 steps (max |diff| {err:.3g}); "
+            f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+            f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {n_bytes} bytes, "
+            f"{n_ops} ops), {100 * bound_ms / ms:.1f}% of the bound")
+    out["no_obs"] = no_obs
+    out["phase_s"]["no_obs"] = time.perf_counter() - t0
+
+    # bf16 on the card against the CPU, and its time beside float32
+    t0 = time.perf_counter()
+    tree = load(os.path.join(WEIGHTS, "dmfb_20x20_4d_bf16", "model", "vdn",
+                             "fov9", "0_final_state.npz"))
+    bf16 = card_vs_cpu_bf16(CRNNAgent, tree["ema"]["agent"],
+                            torch.Generator().manual_seed(16))
+    log(f"phase 6: [{smi}] bf16 CRNN forward of {bf16['rows']} rows, card "
+        f"vs CPU: Q max |diff| {bf16['q_diff']:.3g} (<= {BF16_Q_ATOL}), h "
+        f"{bf16['h_diff']:.3g} (<= {BF16_H_ATOL}), greedy actions agree on "
+        f"{bf16['action_agreement']:.4f}; device time of a forward of "
+        f"{bf16['timed_rows']} rows {bf16['bf16_ms']:.3f} ms in bf16, "
+        f"{bf16['float32_ms']:.3f} ms in float32")
+    if not (bf16["q_diff"] <= BF16_Q_ATOL and bf16["h_diff"] <= BF16_H_ATOL):
+        raise AssertionError("the bf16 forward on the card departs from the "
+                             "CPU's")
+    out["bf16_forward"] = bf16
+    out["phase_s"]["bf16"] = time.perf_counter() - t0
+
+    # the degradation sweep at 50x50 with the 10x10-4d policy
+    t0 = time.perf_counter()
+    data_dir = os.path.join(ROOT, "build", "chip_smoke_sweep")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    model = os.path.join(data_dir, "model", "vdn", "fov9")
+    os.makedirs(model)
+    shutil.copy(os.path.join(POLICY_4D, "model", "vdn", "fov9",
+                             "0_final_state.npz"), model)
+    dmfb_step.launches = 0
+    res = eva_degrade.main(
+        ["dmfb", "--drop_num=4", "--fov=9", f"--chip_size={SWEEP['board']}",
+         f"--evaluate_task={SWEEP['tasks']}",
+         f"--evaluate_epoch={SWEEP['epochs']}", f"--data_dir={data_dir}"])
+    sweep_launches = dmfb_step.launches
+    T = 4 * SWEEP["board"]
+    if sweep_launches != SWEEP["epochs"] * SWEEP["tasks"] * T:
+        raise AssertionError(f"the sweep launched the kernel "
+                             f"{sweep_launches} times")
+    health, usage = res["health"], res["usage"]
+    # health never rises; usage never falls, except on a cell that just
+    # wore out (its counter restarts as its health drops)
+    worn = np.diff(health, axis=1) < 0
+    if (np.diff(health, axis=1) > 0).any() or \
+            ((np.diff(usage, axis=1) < 0) & ~worn).any():
+        raise AssertionError("the sweep's wear went backwards")
+    per_epoch = res["success"].mean(axis=0).tolist()
+    seconds = time.perf_counter() - t0
+    log(f"phase 6: [{smi}] degradation sweep, {SWEEP['board']}x"
+        f"{SWEEP['board']}, 5 chips, {SWEEP['epochs']} epochs x "
+        f"{SWEEP['tasks']} tasks: success per epoch {per_epoch}, steps per "
+        f"epoch {res['steps'].mean(axis=0).tolist()}, cells worn "
+        f"{int(worn.sum())}, usage total {float(usage[:, -1].sum())}, kernel "
+        f"launches {sweep_launches} at B = 5, {seconds:.2f} s")
+    out["sweep"] = dict(success_per_epoch=per_epoch,
+                        launches=sweep_launches, seconds=seconds)
+    out["phase_s"]["total"] = time.perf_counter() - t6
+    log(f"phase 6: {out['phase_s']['total']:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -260,10 +487,9 @@ def main() -> int:
     from marl_dmfb_tpu_torch.config import get_evaluate_args
     from marl_dmfb_tpu_torch.config import make_env_from_args
     from marl_dmfb_tpu_torch.replay import sample
-    from marl_dmfb_tpu_torch.trainer import Trainer
+    from marl_dmfb_tpu_torch.trainer import Trainer, restore_net_config
     from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
-    from marl_dmfb_tpu_torch.models.networks import (build_agent_net,
-                                                     init_params)
+    from marl_dmfb_tpu_torch.models.networks import build_agent_net
     from marl_dmfb_tpu_torch.ops import _build, dmfb_step
     from marl_dmfb_tpu_torch.rollout import RolloutNoise, make_rollout
 
@@ -288,11 +514,17 @@ def main() -> int:
     ptxas = ptxas_summary(built.log)
     for entry, info in ptxas.items():
         log(f"  ptxas: {entry}: {info}")
-    main4 = [info for entry, info in ptxas.items() if "ILi4E" in entry]
-    if len(main4) != 1 or main4[0].get("spill_stores") != 0 \
-            or main4[0].get("spill_loads") != 0:
-        raise AssertionError(f"the 4-droplet instantiation spills or was "
-                             f"not found in the ptxas log: {main4}")
+    # the 4-droplet instantiations: with observations (the main path's) and
+    # without (the v0.1 path's); neither may spill
+    main4 = {mode: [info for entry, info in ptxas.items()
+                    if f"ILi4ELb{int(mode)}E" in entry]
+             for mode in (True, False)}
+    for mode, found in main4.items():
+        if len(found) != 1 or found[0].get("spill_stores") != 0 \
+                or found[0].get("spill_loads") != 0:
+            raise AssertionError(
+                f"the 4-droplet instantiation (observe={mode}) spills or was "
+                f"not found in the ptxas log: {found}")
     log(f"phase 1: {time.perf_counter() - t0:.2f} s")
 
     # --- 2: kernel vs plain version ---
@@ -311,11 +543,13 @@ def main() -> int:
 
     # --- 3: the evaluate entry point, through the kernel ---
     t0 = time.perf_counter()
-    argv = ["dmfb", "--drop_num=4", "--fov=9", "--evaluate_task=100"]
+    argv = ["dmfb", "--drop_num=4", "--fov=9", "--evaluate_task=100",
+            f"--data_dir={POLICY_4D}"]
     dmfb_step.launches = 0
     m = evaluate.main(argv)
     launches = dmfb_step.launches
     args = get_evaluate_args(argv)
+    restore_net_config(args, "final")
     env = make_env_from_args(args)
     T = env.episode_limit
     if launches != T:
@@ -328,10 +562,11 @@ def main() -> int:
         f"{m['steps']}, reward {m['reward']:.4f}, kernel launches "
         f"{launches} (T = {T}); conv width {args.hyper_hidden_dim}")
 
-    # the same greedy rollout on the card (kernel) and the CPU (plain)
-    args.update_env_info(env.env_info())
-    net = init_params(build_agent_net(args),
-                      torch.Generator().manual_seed(args.seed)).eval()
+    # the same greedy rollout of the policy on the card (kernel) and the CPU
+    # (plain)
+    policy = Trainer(env, args, eval_only=True)
+    policy.load_model("final", params_only=True)
+    net = policy.net.eval()
     gc = torch.Generator(device="cuda").manual_seed(7)
     small = env.init(64, gc, "cuda")
     reset = env.reset(small, gc)
@@ -516,6 +751,8 @@ def main() -> int:
         f"({TRAIN_B * T / cycle_s:.0f} lockstep); peak memory of the run "
         f"{peak_train / 2 ** 20:.1f} MiB")
     log(f"phase 5: {time.perf_counter() - t0:.2f} s")
+
+    phase6 = trained_policies(smi)
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     log(smi)
@@ -538,6 +775,17 @@ def main() -> int:
         "plain_ms_b100": timed[EVAL_B]["plain_ms"],
         "bound_ms_b100": timed[EVAL_B]["bound_ms"],
         "share_of_bound_b100": timed[EVAL_B]["share"],
+        "registers": main4[True][0]["registers"],
+        "launches_no_obs": phase6["launches_no_obs"],
+        "no_obs_max_abs_err": phase6["no_obs"]["max_abs_err"],
+        "no_obs_ms": phase6["no_obs"][KERNEL_B]["ms"],
+        "no_obs_plain_ms": phase6["no_obs"][KERNEL_B]["plain_ms"],
+        "no_obs_bound_ms": phase6["no_obs"][KERNEL_B]["bound_ms"],
+        "no_obs_bound_by": phase6["no_obs"][KERNEL_B]["bound_by"],
+        "no_obs_ms_b100": phase6["no_obs"][EVAL_B]["ms"],
+        "no_obs_plain_ms_b100": phase6["no_obs"][EVAL_B]["plain_ms"],
+        "no_obs_bound_ms_b100": phase6["no_obs"][EVAL_B]["bound_ms"],
+        "no_obs_registers": main4[False][0]["registers"],
     }]}))
     log(json.dumps({"train": {
         "cycles": cycles, "updates": updates,
@@ -547,6 +795,8 @@ def main() -> int:
         "card_vs_cpu": {"loss_rel": loss_rel, "param_diff": clean,
                         "param_diff_all": worst},
         "device": smi}}))
+    log(json.dumps({"trained": {
+        k: v for k, v in phase6.items() if k != "no_obs"}, "device": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -11,26 +11,44 @@ unpickles nothing else (``weights_only=True``).
 Loading is strict by name (:func:`restructure`, after JAX
 ``restructure_by_path``): a missing entry, an extra entry, or a leaf of
 another shape or dtype kind raises ``ValueError`` naming its path.
+
+The port also reads the JAX package's checkpoints, exported to numpy by
+``tools/export_flax_npz.py`` (the one tool that imports JAX) as
+``<run>_<tag>_state.npz`` at the same place: :func:`load` turns such a file
+into the same tree (the JAX PRNG key has no counterpart and is not there;
+see :func:`read_export`).
 """
 
 from __future__ import annotations
 
+import json
 import os
 
+import numpy as np
 import torch
 
+from marl_dmfb_tpu_torch.models.convert import (from_flax_learner_state,
+                                                from_flax_params)
 
-def model_state_path(args, tag) -> str:
+
+def model_state_path(args, tag, write: bool = False) -> str:
     """The checkpoint file for a tag, in the JAX package's scheme
     (``<data_dir>/<model_dir>/<alg>/fov<fov>/<run>_<tag>_state``): "final"
     or "3" take the current run's prefix, a tag like "0_final" names its
-    run.  The port adds ``.pt``, so that its file never collides with the
-    JAX package's Orbax directory of the same name."""
+    run.  The port's own file adds ``.pt``, so that it never collides with
+    the JAX package's Orbax directory of the same name; a JAX checkpoint
+    exported to numpy adds ``.npz``.  For reading, the ``.pt`` is taken
+    where there is one, else an ``.npz`` that exists; ``write`` names the
+    ``.pt``."""
     model_dir = os.path.join(args.data_dir, args.model_dir.lstrip("./"),
                              args.alg, f"fov{args.fov}")
     name = (f"{tag}_state" if "_" in str(tag)
             else f"{args.ith_run}_{tag}_state")
-    return os.path.join(model_dir, name + ".pt")
+    pt = os.path.join(model_dir, name + ".pt")
+    npz = os.path.join(model_dir, name + ".npz")
+    if write or os.path.isfile(pt) or not os.path.isfile(npz):
+        return pt
+    return npz
 
 
 def load_model_tag(args) -> str:
@@ -52,11 +70,60 @@ def save(path: str, tree: dict) -> None:
 
 
 def load(path: str) -> dict:
-    """Read a checkpoint tree onto the CPU; raises ``FileNotFoundError``
-    naming ``path`` when there is none."""
+    """Read a checkpoint tree onto the CPU (a ``.pt`` of the port, or an
+    ``.npz`` export of a JAX checkpoint, through :func:`from_export`);
+    raises ``FileNotFoundError`` naming ``path`` when there is none."""
     if not os.path.isfile(path):
-        raise FileNotFoundError(f"no checkpoint at {path}")
+        npz = path[:-3] + ".npz" if path.endswith(".pt") else None
+        raise FileNotFoundError(f"no checkpoint at {path}"
+                                + (f" (nor at {npz})" if npz else ""))
+    if path.endswith(".npz"):
+        return from_export(read_export(path))
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def read_export(path: str) -> dict:
+    """An ``.npz`` of ``tools/export_flax_npz.py`` as the tree it was
+    flattened from, in the JAX package's layouts (numpy leaves, nested
+    dicts keyed by path component): ``ema`` and/or ``learner`` (with
+    ``train_step``), ``epsilon``, and ``net_config`` as a dict."""
+    tree: dict = {}
+    with np.load(path, allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files}
+    net_config = json.loads(str(flat.pop("net_config")))
+    epsilon = flat.pop("epsilon")
+    train_step = flat.pop("train_step")
+    for key, value in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    tree.setdefault("learner", {})["train_step"] = train_step
+    tree["epsilon"] = epsilon
+    tree["net_config"] = net_config
+    return tree
+
+
+def from_export(tree: dict) -> dict:
+    """A tree of :func:`read_export` as the port's checkpoint tree: the
+    agent weights through ``from_flax_params``, a full learner state
+    through ``from_flax_learner_state``.  A deploy export holds one set of
+    weights, under ``ema`` or ``learner/params``."""
+    learner = tree["learner"]
+    out = {"epsilon": torch.tensor(np.float32(tree["epsilon"])),
+           "net_config": dict(tree["net_config"])}
+    agent = lambda p: {"agent": from_flax_params(p["agent"])}
+    if "target_params" in learner:   # a full export (SGD has no opt_state)
+        out["learner"] = from_flax_learner_state({"opt_state": {},
+                                                  **learner})
+    elif "params" in learner:
+        out["learner"] = {"params": agent(learner["params"]),
+                          "train_step": torch.tensor(
+                              int(learner["train_step"]), dtype=torch.int32)}
+    if "ema" in tree:
+        out["ema"] = agent(tree["ema"])
+    return out
 
 
 def _leaves(tree, prefix=()):

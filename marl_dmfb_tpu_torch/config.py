@@ -10,11 +10,11 @@ Deviations from the JAX CLI:
 
 * ``--device`` (default ``cuda``) picks the torch device; the entry points
   raise when CUDA is asked for and absent.
-* evaluation's ``--load_model`` defaults to False (JAX: True), because the
-  JAX package's Orbax checkpoints cannot reach the port yet; it reads the
-  port's own checkpoints (``checkpoint.py``).  ``--show``/``--show_save``
-  raise ``NotImplementedError``, and ``--evaluate_epoch``/``--noise_eps``
-  (the degradation sweep) are not parsed.
+* evaluation loads a checkpoint, as the JAX CLI does (``--load_model`` is
+  on by default and no flag turns it off): the port's own ``.pt``, or a
+  JAX checkpoint exported to ``.npz`` by ``tools/export_flax_npz.py``
+  (``checkpoint.py``).  ``--show``/``--show_save`` raise
+  ``NotImplementedError``.
 * the TPU and later-slice flags are parsed and raise
   ``NotImplementedError`` when set away from their default (see
   :func:`refuse_unported`); ``--scan_unroll`` is accepted and ignored.
@@ -103,6 +103,8 @@ class Args:
     show_save: bool = False
     b_degrade: bool = False
     per_degrade: float = 0.1
+    evaluate_epoch: int = 20
+    noise_eps: float = 0.0        # evaluation-time epsilon (eva_degrade)
 
     # --- hyperparameters (DMFB_HPARAMS network section) ---
     rnn_hidden_dim: int = 128
@@ -223,7 +225,8 @@ def _common_parser() -> argparse.ArgumentParser:
                         "not ported yet")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bf16"],
-                   help="net precision; bf16 is not ported yet")
+                   help="net matmul/conv precision: bf16 rounds their "
+                        "operands to bfloat16 (float32 params and sums)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
@@ -242,10 +245,6 @@ def refuse_unported(args: Args) -> Args:
     if args.vmap_seeds > 1:
         raise NotImplementedError(
             "--vmap_seeds: ROADMAP.md Queue 1 item 10 (seed farm)")
-    if args.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"--compute_dtype {args.compute_dtype}: ROADMAP.md Queue 1 "
-            "item 5 (bf16 nets)")
     if args.remat:
         raise NotImplementedError(
             "--remat: ROADMAP.md Queue 1 item 6 (MEDA, activation "
@@ -315,6 +314,11 @@ def get_evaluate_args(argv=None) -> Args:
     p.add_argument("--show_save", default=False, action="store_true")
     p.add_argument("--b-degrade", dest="b_degrade", default=True)
     p.add_argument("--per-degrade", dest="per_degrade", type=float, default=0)
+    p.add_argument("--evaluate_epoch", type=int, default=20)
+    p.add_argument("--noise_eps", type=float, default=0.0,
+                   help="epsilon-greedy noise during evaluation (0 = "
+                        "greedy); the degradation sweep's control runs")
+    p.set_defaults(load_model=True)
     args = Args(**vars(p.parse_args(argv)))
     args.apply_env_defaults()
     # quirk parity: evaluation always loads the 4-droplet hyperparameters

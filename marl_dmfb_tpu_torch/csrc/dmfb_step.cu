@@ -8,6 +8,14 @@
 // counts, the all-done bonus, electrode wear, episode bookkeeping, and the
 // 3-layer int8 field-of-view observation with the zoomed goal direction.
 //
+// Modes (the launch's `observe` argument, the kernel's OBS template
+// parameter): with it, the whole step above; without it, the transition
+// alone, for observations that the kernel does not compute (the DMFB v0.1
+// observation, `envs/dmfb_v01.py`, taken by the caller on the new state):
+// no observation span in shared memory, no zeroing, no observation stores.
+// The OBS=true instantiations are the code of the step with observations
+// and nothing else.
+//
 // Bound on the H100: bytes.  Per chip and step (10x10 board, 4 droplets,
 // fov 9) it reads 748 bytes (the usage board, the block mask, one 32-byte
 // sector of health under each droplet, positions, goals, actions, draws)
@@ -39,8 +47,8 @@
 //    old state of chips whose episode has ended, so nothing is updated in
 //    place).  Meanwhile one thread of warp 1 per chip flags the chips that
 //    have a block at all.
-//  - Observations: while the usage board leaves by bulk store, one thread
-//    per droplet fills the zeroed tile: layers 0 and 1 by scatter, walking
+//  - Observations (OBS only): while the usage board leaves by bulk store,
+//    one thread per droplet fills the zeroed tile: layers 0 and 1 by scatter, walking
 //    the droplets in increasing order so that the highest id wins; layer 2
 //    as a bit string of walls and blocks written in 4-byte words; the two
 //    direction bytes with `zoom`.  The tile leaves by one bulk store.
@@ -84,7 +92,7 @@ struct StepArgs {
   int32_t* step_o;
   int32_t* cumc_o;
   float* rew_o;              // (B, N)
-  int8_t* obs_o;             // (B, N, 3*fov*fov + 2)
+  int8_t* obs_o;             // (B, N, 3*fov*fov + 2); unused without OBS
   uint8_t* dones_o;          // (B, N) bool
   uint8_t* term_o;           // (B,) bool
   int32_t* cons_o;           // (B,)
@@ -98,8 +106,8 @@ __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 
 // Byte offsets of the spans of one tile buffer in dynamic shared memory,
 // each on a 16-byte boundary.  A block holds two such buffers after the 16
-// bytes of its two mbarriers.  `_span_bytes` in ops/dmfb_step.py mirrors
-// this list.
+// bytes of its two mbarriers.  `od` is the bytes of one observation row, 0
+// without OBS.  `_span_bytes` in ops/dmfb_step.py mirrors this list.
 struct Layout {
   int pos, goal, dist, act, uni, step, cumc, block, usage, obs, pos_o, blocked;
   int total;
@@ -522,10 +530,10 @@ __device__ __forceinline__ void observe_droplet(const StepArgs& a, const Layout&
 // alternating between two buffers, so that the inputs of the tile after
 // next and the stores of the last tile are in flight while a tile is
 // computed.
-template <int MAXN>
+template <int MAXN, bool OBS>
 __global__ void __launch_bounds__(kThreads) dmfb_step_kernel(const StepArgs a) {
   extern __shared__ __align__(128) uint8_t smem[];
-  const int N = a.N, WL = a.W * a.L, od = 3 * a.fov * a.fov + 2;
+  const int N = a.N, WL = a.W * a.L, od = OBS ? 3 * a.fov * a.fov + 2 : 0;
   const Layout t = layout(a.tile, N, WL, od);
   const int ntiles = (a.B + a.tile - 1) / a.tile;
   const int tid = threadIdx.x;
@@ -551,7 +559,7 @@ __global__ void __launch_bounds__(kThreads) dmfb_step_kernel(const StepArgs a) {
     const size_t cn = static_cast<size_t>(c0) * N;
     // the buffer's last stores have read it (the wait that ends the
     // iteration before), so its observations can be zeroed
-    {
+    if constexpr (OBS) {
       uint4* z = reinterpret_cast<uint4*>(buf + t.obs);
       const int n = round16(nc * N * od) >> 4;
 #pragma unroll 1
@@ -562,7 +570,7 @@ __global__ void __launch_bounds__(kThreads) dmfb_step_kernel(const StepArgs a) {
 
     if (tid < nc) {
       step_chip<MAXN>(a, t, buf, tid, c0 + tid);
-    } else if (tid >= 32 && tid - 32 < nc) {
+    } else if (OBS && tid >= 32 && tid - 32 < nc) {
       // meanwhile: does the chip have a block at all (most boards have none)?
       const int c = tid - 32;
       const uint8_t* blk = buf + t.block + c * WL;
@@ -583,20 +591,29 @@ __global__ void __launch_bounds__(kThreads) dmfb_step_kernel(const StepArgs a) {
     store_span(a.usage_o + static_cast<size_t>(c0) * WL, buf + t.usage, nc * WL * 4);
 
     // ... while the block writes the observations, one thread per droplet
-    int8_t* obs = reinterpret_cast<int8_t*>(buf + t.obs);
+    if constexpr (OBS) {
+      int8_t* obs = reinterpret_cast<int8_t*>(buf + t.obs);
 #pragma unroll 1
-    for (int e = tid; e < nc * N; e += kThreads) {
-      const int c = e / N;
-      observe_droplet<MAXN>(a, t, buf, c, e - c * N, obs + e * od);
+      for (int e = tid; e < nc * N; e += kThreads) {
+        const int c = e / N;
+        observe_droplet<MAXN>(a, t, buf, c, e - c * N, obs + e * od);
+      }
+      fence_proxy_async();
+      __syncthreads();
+      store_span(a.obs_o + cn * od, buf + t.obs, nc * N * od);
     }
-    fence_proxy_async();
-    __syncthreads();
-    store_span(a.obs_o + cn * od, buf + t.obs, nc * N * od);
 
     // before the buffer takes the tile after next, the usage board has left
     // it (all store groups but the newest, the observations, which the wait
-    // that ends the next tile covers)
-    if (tid == kStoreLane) asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+    // that ends the next tile covers; without OBS the usage board is the
+    // newest group)
+    if (tid == kStoreLane) {
+      if constexpr (OBS) {
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      } else {
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      }
+    }
     __syncthreads();
     if (tile + 2 * gridDim.x < ntiles)
       stage(a, t, buf, bar0 + 8 * (k & 1), tile + 2 * gridDim.x);
@@ -606,22 +623,22 @@ __global__ void __launch_bounds__(kThreads) dmfb_step_kernel(const StepArgs a) {
   }
 }
 
-template <int MAXN>
+template <int MAXN, bool OBS>
 int launch(const StepArgs& a, int smem, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(dmfb_step_kernel<MAXN>,
+  cudaError_t e = cudaFuncSetAttribute(dmfb_step_kernel<MAXN, OBS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, sms = 0, per_sm = 0;
   e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dmfb_step_kernel<MAXN>, kThreads,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dmfb_step_kernel<MAXN, OBS>, kThreads,
                                                       smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int ntiles = (a.B + a.tile - 1) / a.tile;
   const dim3 grid(min(ntiles, per_sm * sms));
-  dmfb_step_kernel<MAXN><<<grid, kThreads, smem, s>>>(a);
+  dmfb_step_kernel<MAXN, OBS><<<grid, kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -634,13 +651,13 @@ extern "C" int dmfb_step_launch(
     void* pos_o, void* dist_o, void* usage_o, void* step_o, void* cumc_o,
     void* rew_o, void* obs_o, void* dones_o, void* term_o, void* cons_o,
     void* succ_o, void* team_o, int B, int W, int L, int N, int fov,
-    int stall, int max_step, int tile, float rcp_x, float rcp_y,
+    int stall, int max_step, int tile, int observe, float rcp_x, float rcp_y,
     void* stream) {
   if (B < 1 || N < 1 || N > kMaxDroplets || fov < 1 || fov > W || fov > L ||
       tile < 1 || tile > kMaxTile) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem = smem_bytes(tile, N, W * L, 3 * fov * fov + 2);
+  const int smem = smem_bytes(tile, N, W * L, observe ? 3 * fov * fov + 2 : 0);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   StepArgs a;
   a.pos = static_cast<const int32_t*>(pos);
@@ -677,7 +694,12 @@ extern "C" int dmfb_step_launch(
   a.rcp_y = rcp_y;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N <= 4) return launch<4>(a, smem, s);
-  if (N <= 8) return launch<8>(a, smem, s);
-  return launch<kMaxDroplets>(a, smem, s);
+  if (observe) {
+    if (N <= 4) return launch<4, true>(a, smem, s);
+    if (N <= 8) return launch<8, true>(a, smem, s);
+    return launch<kMaxDroplets, true>(a, smem, s);
+  }
+  if (N <= 4) return launch<4, false>(a, smem, s);
+  if (N <= 8) return launch<8, false>(a, smem, s);
+  return launch<kMaxDroplets, false>(a, smem, s);
 }

@@ -8,9 +8,11 @@ one seed, so task generation is held to its invariants, and the transition
 itself (:func:`step_core`) takes its move-success draws as an argument so
 that tests can replay the JAX package's draws.
 
-:func:`step_core` plus :func:`observe` is the plain version of the hand
-kernel in ``csrc/dmfb_step.cu``; ``ops/dmfb_step.py`` dispatches between the
-two by device.
+:func:`step_core` (:func:`transition`, then :func:`observe`) is the plain
+version of the hand kernel in ``csrc/dmfb_step.cu``; ``ops/dmfb_step.py``
+dispatches between the two by device.  The observation is the v0 int8 one,
+or with ``obs_version="v0.1"`` the 4-layer float32 one of
+``envs/dmfb_v01.py``, which the kernel does not compute.
 
 Coordinates follow the JAX package: the board is ``[x][y]`` with shape
 ``(width, length)``; ``pos[b, i] = (x, y)``.  Actions: STALL=0, RIGHT=1
@@ -32,7 +34,7 @@ N_ACTIONS = 5
 
 @dataclasses.dataclass(frozen=True)
 class DMFBParams:
-    """Static environment configuration (JAX dmfb.py:47-141; v0 only)."""
+    """Static environment configuration (JAX dmfb.py:47-141)."""
 
     width: int = 10
     length: int = 10
@@ -42,8 +44,11 @@ class DMFBParams:
     stall: bool = True
     b_degrade: bool = False
     per_degrade: float = 0.1
+    obs_version: str = "v0"   # "v0" (3 int8 layers) or "v0.1" (4 float32)
 
     def __post_init__(self):
+        if self.obs_version not in ("v0", "v0.1"):
+            raise ValueError(f"unknown DMFB observation {self.obs_version!r}")
         if self.fov > min(self.width, self.length):
             raise RuntimeError("Fov is too large")
         droplet_limit = int((self.width + 1) * (self.length + 1) / 9)
@@ -71,13 +76,21 @@ class DMFBParams:
         return self.max_step
 
     @property
+    def n_layers(self) -> int:
+        return 4 if self.obs_version == "v0.1" else 3
+
+    @property
     def obs_dim(self) -> int:
-        return 3 * self.fov * self.fov + 2
+        return self.n_layers * self.fov * self.fov + 2
 
     @property
     def obs_shape(self) -> Tuple[int, ...]:
         # (channels, fov, fov, vector length, flattened size)
-        return (3, self.fov, self.fov, 2, self.obs_dim)
+        return (self.n_layers, self.fov, self.fov, 2, self.obs_dim)
+
+    @property
+    def obs_dtype(self) -> torch.dtype:
+        return torch.int8 if self.obs_version == "v0" else torch.float32
 
     @property
     def state_dim(self) -> int:
@@ -125,7 +138,8 @@ class DMFBState(NamedTuple):
 
 
 class StepOutput(NamedTuple):
-    obs: torch.Tensor          # (B, N, obs_dim) int8
+    obs: torch.Tensor          # (B, N, obs_dim) obs_dtype; None from
+    #                            transition()
     rewards: torch.Tensor      # (B, N) f32
     team_reward: torch.Tensor  # (B,) f32 — mean over agents
     dones: torch.Tensor        # (B, N) bool
@@ -396,10 +410,11 @@ def _conflicts(pasts: torch.Tensor, curs: torch.Tensor):
     return sta, dy
 
 
-def step_core(params: DMFBParams, state: DMFBState, actions: torch.Tensor,
-              uniforms: torch.Tensor) -> Tuple[DMFBState, StepOutput]:
+def transition(params: DMFBParams, state: DMFBState, actions: torch.Tensor,
+               uniforms: torch.Tensor) -> Tuple[DMFBState, StepOutput]:
     """One transition of B chips with injected move-success draws
-    ``uniforms`` (B, N) — the plain version of the CUDA kernel."""
+    ``uniforms`` (B, N), without the observation (``obs`` is None) — the
+    plain version of the CUDA kernel's no-observation mode."""
     actions = actions.to(torch.int32)
     dones_pre = state.dist == 0
     new_pos, new_dist, rewards = _move_droplets(
@@ -436,7 +451,7 @@ def step_core(params: DMFBParams, state: DMFBState, actions: torch.Tensor,
         cum_constraints=cum_constraints,
     )
     out = StepOutput(
-        obs=observe(params, state),
+        obs=None,
         rewards=rewards,
         team_reward=rewards.mean(dim=1),
         dones=dones,
@@ -445,6 +460,15 @@ def step_core(params: DMFBParams, state: DMFBState, actions: torch.Tensor,
         success=success,
     )
     return state, out
+
+
+def step_core(params: DMFBParams, state: DMFBState, actions: torch.Tensor,
+              uniforms: torch.Tensor) -> Tuple[DMFBState, StepOutput]:
+    """One step of B chips with injected move-success draws: the transition,
+    then the observation of the new state (JAX dmfb.py:429-610) — the plain
+    version of the CUDA kernel."""
+    state, out = transition(params, state, actions, uniforms)
+    return state, out._replace(obs=observe(params, state))
 
 
 def step(params: DMFBParams, state: DMFBState, actions: torch.Tensor,
@@ -483,6 +507,16 @@ def _zoom_dir(params: DMFBParams, d: torch.Tensor, rcp: float):
 
 
 def observe(params: DMFBParams, state: DMFBState) -> torch.Tensor:
+    """Per-agent observations (B, N, obs_dim) of the params' version (JAX
+    dmfb.py:703-712)."""
+    if params.obs_version == "v0.1":
+        from marl_dmfb_tpu_torch.envs.dmfb_v01 import observe_v01
+
+        return observe_v01(params, state)
+    return observe_v0(params, state)
+
+
+def observe_v0(params: DMFBParams, state: DMFBState) -> torch.Tensor:
     """Per-agent v0 observations (B, N, 3*fov*fov + 2) int8: droplet ids,
     visible droplets' goals, blocks + walls, zoomed goal direction."""
     fov, hf, n = params.fov, params.fov // 2, params.n_droplets

@@ -3,8 +3,9 @@
 
 ``make_env`` returns an :class:`Env`: functions closed over the static
 params, each taking a batch of B chips.  ``step_core`` is the production env
-step: on CUDA tensors it launches the hand kernel, on CPU tensors it runs the
-kernel's plain PyTorch version (``ops/dmfb_step.py``).
+step: on CUDA tensors it launches the hand kernel (for the v0.1 observation,
+its no-observation mode, then the plain v0.1 ``observe``), on CPU tensors it
+runs the kernel's plain PyTorch version (``ops/dmfb_step.py``).
 """
 
 from __future__ import annotations
@@ -53,9 +54,13 @@ def _step(params, state, actions, generator):
 
 def make_env(name: str = "dmfb", version: str | None = None,
              **kwargs) -> Env:
-    """Build an environment bundle.  Only DMFB with the v0 observation is
-    ported so far."""
-    obs_version = {"0.1": "v0.1", "0.2": "v0.2"}.get(version or "", "v0")
+    """Build an environment bundle.  ``version`` follows the CLI: for DMFB,
+    ``'0.1'`` selects the 4-layer float32 observation, anything else the v0
+    int8 one; ``obs_version`` ("v0", "v0.1") names it directly.  MEDA is
+    not ported yet."""
+    obs_version = kwargs.pop("obs_version", None)
+    if obs_version is None:
+        obs_version = {"0.1": "v0.1", "0.2": "v0.2"}.get(version or "", "v0")
     if name == "meda":
         raise NotImplementedError(
             "the MEDA env is not ported yet; see ROADMAP.md")
@@ -63,11 +68,7 @@ def make_env(name: str = "dmfb", version: str | None = None,
         raise ValueError(f"unknown env name: {name!r}")
     if obs_version == "v0.2":
         raise ValueError("dmfb has no v0.2 observation")
-    if obs_version != "v0":
-        raise NotImplementedError(
-            f"the DMFB {obs_version} observation is not ported yet; "
-            "see ROADMAP.md")
-    params = _dmfb.DMFBParams(**kwargs)
+    params = _dmfb.DMFBParams(obs_version=obs_version, **kwargs)
     return Env(
         name="dmfb",
         params=params,

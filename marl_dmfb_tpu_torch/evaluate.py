@@ -3,14 +3,17 @@
 Usage::
 
     python -m marl_dmfb_tpu_torch.evaluate dmfb --drop_num=4 --fov=9 \\
-        --evaluate_task=100 [--boards=10,20,50] [--device=cpu]
+        --chip_size=50 --load_model_name=0_final --data_dir=<run dir> \\
+        [--evaluate_task=100] [--boards=10,20,50] [--compute_dtype=bf16] \\
+        [--version=0.1] [--device=cpu]
 
 Runs on the GPU unless ``--device cpu`` is given, and raises when CUDA is
-asked for and absent.  ``--load_model`` evaluates a checkpoint of the
-port's trainer (``--load_model_name``, default ``final``, under
-``--data_dir``) with the net hyperparameters it was saved with; without it
-the weights are random, drawn from ``--seed``.  ``--show`` and
-``--show_save`` raise ``NotImplementedError``.
+asked for and absent.  As in the JAX package, evaluation always loads a
+checkpoint (``--load_model_name``, default ``final``, under ``--data_dir``)
+with the net hyperparameters it was saved with: the port's own ``.pt``, or
+a JAX checkpoint exported by ``tools/export_flax_npz.py``.  Without one it
+raises ``FileNotFoundError``.  ``--show`` and ``--show_save`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations

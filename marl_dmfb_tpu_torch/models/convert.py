@@ -18,7 +18,12 @@ import torch
 
 
 def _t(x) -> torch.Tensor:
-    return torch.tensor(np.asarray(x, np.float32))   # a contiguous copy
+    """A float32 copy of a float weight; another dtype kind raises, so that a
+    strict load sees no silent cast."""
+    x = np.asarray(x)
+    if not np.issubdtype(x.dtype, np.floating):
+        raise ValueError(f"a weight of dtype {x.dtype}: expected floating")
+    return torch.tensor(x.astype(np.float32))   # a contiguous copy
 
 
 def _dense(prefix: str, p: Mapping) -> dict:

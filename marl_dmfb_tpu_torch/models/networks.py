@@ -10,29 +10,99 @@ initialised U(-1/sqrt(fan_in), 1/sqrt(fan_in)) from an explicit generator
 The agent input keeps the JAX package's flat layout,
 ``[pixel (C*fov*fov) | direction (2) | last-action one-hot (n_actions)]``,
 and the conv output is flattened channel-major, as there.
+
+``--compute_dtype bf16`` is the JAX package's mixed precision
+(``networks.py:30-37, 100-119``): each matmul and conv casts both operands
+to bfloat16 and upcasts the product to float32, and the bias is added in
+float32 after the upcast; the parameters, the GRU gates' nonlinearities and
+everything between the layers stay float32.  XLA compiles that cast pair
+away (its default ``xla_allow_excess_precision``): the JAX package's
+product is the float32 sum of the exact products of the bfloat16-rounded
+operands, never rounded to bfloat16.  The port computes the same thing, a
+float32 matmul or conv of operands rounded to bfloat16 (:func:`_round`).
+In float32 every layer is torch's own.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 
-# The JAX package's TorchGRUCell (r/z/n gates, reset inside the candidate's
-# hidden branch) and TorchDense are these torch layers.
-TorchGRUCell = nn.GRUCell
-TorchDense = nn.Linear
+def _round(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` rounded to ``dtype`` and back to float32."""
+    return x.to(dtype).float()
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """``x @ w.T`` of the operands rounded to ``dtype``, in float32 (JAX
+    ``_mm`` as XLA compiles it)."""
+    return F.linear(_round(x, dtype), _round(w, dtype))
+
+
+class TorchDense(nn.Linear):
+    """torch's Linear; in ``compute_dtype`` the operands are rounded there
+    and the bias added in float32 (JAX ``TorchDense``)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return _linear(x, self.weight, self.compute_dtype) + self.bias
+
+
+class TorchGRUCell(nn.GRUCell):
+    """torch's GRUCell (r/z/n gates, reset inside the candidate's hidden
+    branch); in ``compute_dtype`` the operands of the two gate products are
+    rounded there and the gates computed in float32 (JAX
+    ``TorchGRUCell``)."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(input_size, hidden_size)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x, h)
+        gi = _linear(x, self.weight_ih, dt) + self.bias_ih
+        gh = _linear(h, self.weight_hh, dt) + self.bias_hh
+        i_r, i_z, i_n = gi.chunk(3, dim=-1)
+        h_r, h_z, h_n = gh.chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        return (1.0 - z) * n + z * h
 
 
 class TorchConv(nn.Conv2d):
-    """VALID 3x3 convolution (NCHW)."""
+    """VALID 3x3 convolution (NCHW); in ``compute_dtype`` the operands are
+    rounded there and the bias is added in float32 (JAX ``TorchConv``)."""
 
-    def __init__(self, in_channels: int, features: int, stride: int = 1):
+    def __init__(self, in_channels: int, features: int, stride: int = 1,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__(in_channels, features, kernel_size=3, stride=stride)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = F.conv2d(_round(x, dt), _round(self.weight, dt), None,
+                     self.stride)
+        return y + self.bias[:, None, None]
+
+
+COMPUTE_DTYPES = {"float32": None, "bf16": torch.bfloat16}
 
 
 def conv_plan(fov: int) -> Sequence[int]:
@@ -75,11 +145,13 @@ def init_params(net: nn.Module, generator: torch.Generator) -> nn.Module:
 class RNNAgent(nn.Module):
     """fc -> GRU -> fc Q head (JAX networks.py:139-168)."""
 
-    def __init__(self, input_dim: int, n_actions: int, rnn_hidden: int = 128):
+    def __init__(self, input_dim: int, n_actions: int, rnn_hidden: int = 128,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.fc1 = TorchDense(input_dim, rnn_hidden)
-        self.gru = TorchGRUCell(rnn_hidden, rnn_hidden)
-        self.fc2 = TorchDense(rnn_hidden, n_actions)
+        dt = compute_dtype
+        self.fc1 = TorchDense(input_dim, rnn_hidden, dt)
+        self.gru = TorchGRUCell(rnn_hidden, rnn_hidden, dt)
+        self.fc2 = TorchDense(rnn_hidden, n_actions, dt)
 
     def forward(self, inputs: torch.Tensor, h: torch.Tensor):
         h = self.gru(F.relu(self.fc1(inputs)), h)
@@ -92,20 +164,23 @@ class CRNNAgent(nn.Module):
 
     def __init__(self, n_actions: int, obs_channels: int, fov: int,
                  conv_channels: int, rnn_hidden: int = 128, vec_len: int = 2,
-                 last_action: bool = True):
+                 last_action: bool = True,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        dt = compute_dtype
         self.obs_channels = obs_channels
         self.fov = fov
         in_ch = obs_channels
         self.convs = nn.ModuleList()
         for stride in conv_plan(fov):
-            self.convs.append(TorchConv(in_ch, conv_channels, stride))
+            self.convs.append(TorchConv(in_ch, conv_channels, stride, dt))
             in_ch = conv_channels
         self.mlp1 = TorchDense(vec_len + (n_actions if last_action else 0),
-                               10)
+                               10, dt)
         out = conv_out_size(fov)
-        self.gru = TorchGRUCell(out * out * conv_channels + 10, rnn_hidden)
-        self.fc1 = TorchDense(rnn_hidden, n_actions)
+        self.gru = TorchGRUCell(out * out * conv_channels + 10, rnn_hidden,
+                                dt)
+        self.fc1 = TorchDense(rnn_hidden, n_actions, dt)
 
     def encode(self, inputs: torch.Tensor) -> torch.Tensor:
         C, fov = self.obs_channels, self.fov
@@ -122,14 +197,16 @@ class CRNNAgent(nn.Module):
 
 
 def build_agent_net(args) -> nn.Module:
-    """Pick the agent net from config (JAX networks.py:237-259; float32
-    only: ``compute_dtype=bf16`` is not ported yet).  The input ends with
-    the last action's one-hot unless ``args.last_action`` is off."""
+    """Pick the agent net from config (JAX networks.py:237-259), in
+    ``args.compute_dtype`` (float32, or bf16 mixed precision).  The input
+    ends with the last action's one-hot unless ``args.last_action`` is
+    off."""
     n_last = args.n_actions if args.last_action else 0
+    dt = COMPUTE_DTYPES[getattr(args, "compute_dtype", "float32")]
     if args.net == "rnn":
         return RNNAgent(input_dim=args.obs_shape[-1] + n_last,
                         n_actions=args.n_actions,
-                        rnn_hidden=args.rnn_hidden_dim)
+                        rnn_hidden=args.rnn_hidden_dim, compute_dtype=dt)
     if args.net == "crnn":
         return CRNNAgent(
             n_actions=args.n_actions,
@@ -139,6 +216,7 @@ def build_agent_net(args) -> nn.Module:
             rnn_hidden=args.rnn_hidden_dim,
             vec_len=args.obs_shape[-2],
             last_action=args.last_action,
+            compute_dtype=dt,
         )
     raise ValueError(f"unknown net: {args.net!r}")
 

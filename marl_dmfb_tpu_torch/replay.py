@@ -1,9 +1,10 @@
 """Episode replay ring on the device (JAX ``replay.py:34-134, 243-252``).
 
 The ring holds whole episodes in the JAX package's merged layout: ``o_ext``
-``(S, T+1, N*obs_dim)`` int8 (``o = o_ext[:, :T]``, ``o_next =
-o_ext[:, 1:]``), ``u`` ``(S, T, N)`` int8, and ``r``, ``padded`` and
-``terminated`` ``(S, T)``.  :func:`store` writes a rollout's B episodes in
+``(S, T+1, N*obs_dim)`` in the env's observation dtype, int8 for v0 and
+float32 for v0.1 (``o = o_ext[:, :T]``, ``o_next = o_ext[:, 1:]``),
+``u`` ``(S, T, N)`` int8, and ``r``, ``padded`` and ``terminated``
+``(S, T)``.  :func:`store` writes a rollout's B episodes in
 place at a modulo cursor (a 10x10-4d ring of 5000 episodes is 201 MB, so
 there is no functional copy), and :func:`sample` draws a uniform minibatch
 with replacement and hands it over in the ``(b, T, N, .)`` views the

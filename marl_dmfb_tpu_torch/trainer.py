@@ -89,7 +89,8 @@ class Trainer:
             self.env_states = env.init(B, self.generator, self.device)
             self.replay = replay_lib.init_replay(
                 args.buffer_size, args.episode_limit, args.n_agents,
-                args.obs_shape[-1], device=self.device)
+                args.obs_shape[-1], obs_dtype=env.params.obs_dtype,
+                device=self.device)
 
         self.epsilon = args.epsilon
         self.anneal_per_step = (
@@ -156,7 +157,7 @@ class Trainer:
         """Checkpoint the full training state (JAX trainer.py:317-350)."""
         if self.learner is None:
             raise RuntimeError("Trainer was built with eval_only=True")
-        path = checkpoint.model_state_path(self.args, tag)
+        path = checkpoint.model_state_path(self.args, tag, write=True)
         checkpoint.save(path, _cpu(self._tree()))
         return path
 
@@ -178,7 +179,13 @@ class Trainer:
         the checkpoint to have been saved with this run's --param_ema and
         --ckpt_replay, and restores the optimizer, epsilon and the
         generator, and under --ckpt_replay the replay ring and the training
-        chips."""
+        chips.
+
+        The checkpoint may also be a JAX checkpoint exported to ``.npz``
+        (``checkpoint.model_state_path``): a deploy export holds one set of
+        weights, which a params-only load takes for both nets; a full
+        export resumes as a ``.pt`` does, except that the generator keeps
+        this run's state (a JAX PRNG key has no torch counterpart)."""
         path = checkpoint.model_state_path(self.args, tag)
         tree = checkpoint.load(path)
         params = _named(self.net)
@@ -190,8 +197,9 @@ class Trainer:
                 learner = tree["learner"]
                 self._set_params(
                     checkpoint.restructure(params, learner["params"], path),
-                    checkpoint.restructure(params, learner["target_params"],
-                                           path))
+                    checkpoint.restructure(
+                        params, learner.get("target_params",
+                                            learner["params"]), path))
                 if self.learner is not None:
                     self.learner.train_step = int(learner["train_step"])
             self.ema_net = None
@@ -208,7 +216,10 @@ class Trainer:
                     f"{'on' if key in tree else 'off'}, and this run has it "
                     f"{'on' if on else 'off'}; resume with the same "
                     f"--{flag}")
-        tree = checkpoint.restructure(self._tree(), tree, path)
+        template = self._tree()
+        if path.endswith(".npz"):
+            del template["generator"]
+        tree = checkpoint.restructure(template, tree, path)
         self.learner.load_state(tree["learner"])
         if self.ema_net is not None:
             with torch.no_grad():
@@ -220,7 +231,8 @@ class Trainer:
                                                  r["size"])
             self.env_states = type(self.env_states)(**tree["env_states"])
         self.epsilon = tree["epsilon"]
-        self.generator.set_state(tree["generator"])
+        if "generator" in tree:
+            self.generator.set_state(tree["generator"])
 
     # ------------------------------------------------------------------
     def train_cycle(self) -> int:

@@ -2,7 +2,8 @@
 its plain version against the Pallas TPU kernel it replaces (interpret mode
 on the CPU), the wrapper's CPU dispatch and input checks, the build's
 failure mode, and — on a machine with a card — the CUDA kernel against the
-plain version.
+plain version, with its observations and in its no-observation mode (the
+transition alone, which the v0.1 observation follows).
 
 JAX is imported inside the tests that need it, so that the card's machine,
 which has no JAX, can run the ``cuda`` test of this file:
@@ -74,6 +75,25 @@ def test_cpu_dispatch_runs_plain_version_without_launching():
         assert torch.equal(x, y)
 
 
+def test_cpu_transition_is_the_step_without_its_observation():
+    """The no-observation mode's plain version: ``transition_batch`` on the
+    CPU is ``dmfb.transition`` (``obs`` None), which is ``step_core``
+    without its observation; a v0.1 step observes the new state."""
+    p, s, a, u = _cpu_inputs()
+    before = (dmfb_step.launches, dmfb_step.launches_no_obs)
+    s1, o1 = dmfb_step.transition_batch(p, s, a, u)
+    s2, o2 = tdmfb.step_core(p, s, a, u)
+    assert (dmfb_step.launches, dmfb_step.launches_no_obs) == before
+    assert o1.obs is None
+    for x, y in zip(tuple(s1) + tuple(o1)[1:], tuple(s2) + tuple(o2)[1:]):
+        assert torch.equal(x, y)
+    v01 = tdmfb.DMFBParams(n_droplets=4, n_blocks=2, obs_version="v0.1")
+    s3, o3 = dmfb_step.step_batch(v01, s, a, u)
+    assert o3.obs.dtype == torch.float32
+    assert torch.equal(o3.obs, tdmfb.observe(v01, s3))
+    assert torch.equal(s3.usage, s1.usage)
+
+
 @pytest.mark.parametrize("field,bad,err", [
     ("pos", lambda t: t.long(), TypeError),
     ("health", lambda t: t.double(), TypeError),
@@ -133,7 +153,11 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     (dict(width=20, length=20, n_droplets=10), 1000, 1000 * (2608 + 4241)),
 ])
 def test_min_bytes(kw, batch, expect):
-    assert dmfb_step.min_bytes(tdmfb.DMFBParams(**kw), batch) == expect
+    p = tdmfb.DMFBParams(**kw)
+    assert dmfb_step.min_bytes(p, batch) == expect
+    # without the observations: the same less N * (3 fov^2 + 2) per chip
+    assert dmfb_step.min_bytes(p, batch, observe=False) == (
+        expect - batch * p.n_droplets * p.obs_dim)
 
 
 def _layout_spans_from_source():
@@ -154,6 +178,11 @@ def test_tile_bytes_mirrors_the_kernel_layout(kw):
     exprs = _layout_spans_from_source()
     env = dict(C=1, N=p.n_droplets, WL=p.width * p.length, od=p.obs_dim)
     assert [eval(e, {}, env) for e in exprs] == dmfb_step._span_bytes(p)
+    # the no-observation mode lays the tile out with no observation row
+    env["od"] = 0
+    assert [eval(e, {}, env) for e in exprs] == dmfb_step._span_bytes(
+        p, observe=False)
+    assert dmfb_step.tile_bytes(p, 4, False) < dmfb_step.tile_bytes(p, 4)
     src = (_build.CSRC / "dmfb_step.cu").read_text()
     assert "kSmemLimit = 227 * 1024;" in src
     assert dmfb_step.SMEM_LIMIT == 227 * 1024
@@ -230,6 +259,56 @@ _CARD_CASES = [
     # a board whose tile must shrink to fit shared memory
     pytest.param(60, 60, 4, 2, 9, 2048, 0, id="60x60"),
 ]
+
+
+_NO_OBS_CASES = [
+    # the v0.1 artifacts' boards and the batches of the main path
+    pytest.param(10, 10, 2, 0, 9, 16384, 0, id="10-2-0-16384"),
+    pytest.param(10, 10, 4, 0, 9, 100, 0, id="10-4-0-100"),
+    pytest.param(20, 20, 3, 2, 9, 1024, 0, id="20-3-2-1024"),
+    pytest.param(20, 20, 10, 0, 9, 1000, 0, id="20-10-0-1000"),
+    *[pytest.param(10, 10, 3, 2, 9, B, 0, id=f"tail-B{B}") for B in (1, 5, 33)],
+    pytest.param(10, 10, 4, 2, 9, 1000, 1, id="unaligned"),
+    pytest.param(60, 60, 4, 2, 9, 2048, 0, id="60x60"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,length,n,blocks,fov,B,offset", _NO_OBS_CASES)
+def test_cuda_no_observation_mode_matches_plain(width, length, n, blocks, fov,
+                                                B, offset):
+    """The transition alone on the card against ``dmfb.transition``; and a
+    v0.1 step (the kernel's transition, then the plain v0.1 observation)
+    against ``dmfb.step_core``, with its launches counted as no-observation
+    launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    p = tdmfb.DMFBParams(width=width, length=length, n_droplets=n,
+                         n_blocks=blocks, fov=fov, obs_version="v0.1")
+    g = torch.Generator(device="cuda").manual_seed(B + n + 1)
+    s = _card_state(p, B, g, offset)
+    before = (dmfb_step.launches, dmfb_step.launches_no_obs)
+    for _ in range(3):
+        a = torch.randint(0, 5, (B, n), generator=g, device="cuda",
+                          dtype=torch.int32)
+        u = torch.rand((B, n), generator=g, device="cuda")
+        sk, ok = dmfb_step.transition_batch(p, s, a, u)
+        sv, ov = dmfb_step.step_batch(p, s, a, u)
+        sp, op = tdmfb.step_core(p, s, a, u)
+        torch.cuda.synchronize()
+        assert ok.obs is None
+        assert torch.equal(ov.obs, op.obs)
+        for got in (sk, sv):
+            for f in ("pos", "dist", "usage", "step_count", "cum_constraints"):
+                assert torch.equal(getattr(got, f), getattr(sp, f)), f
+        for f in ("dones", "terminated", "constraints", "success"):
+            assert torch.equal(getattr(ok, f), getattr(op, f)), f
+        for f in ("rewards", "team_reward"):
+            torch.testing.assert_close(getattr(ok, f), getattr(op, f),
+                                       rtol=0, atol=1e-5)
+        s = sk
+    assert (dmfb_step.launches - before[0],
+            dmfb_step.launches_no_obs - before[1]) == (6, 6)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,224 @@
+"""JAX checkpoints carried to the PyTorch port: ``tools/export_flax_npz.py``
+writes an Orbax checkpoint as a numpy-only ``.npz``, and the port reads it.
+
+* the export round-trips bitwise against ``marl_dmfb_tpu.checkpoint.restore``;
+* each export committed under ``tests/fixtures/torch_weights/`` equals a
+  fresh export of its artifact;
+* a params-only load takes the EMA where there is one, as JAX's
+  ``Trainer.load_model`` does, and a full export resumes the learner state;
+* the flagship export, evaluated greedily on JAX's own task states and
+  draws at 20x20, gives JAX's per-episode steps and success exactly and its
+  per-episode rewards within ``REWARD_SUM_ATOL``.
+"""
+
+import functools
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from marl_dmfb_tpu import checkpoint as jckpt
+from marl_dmfb_tpu import config as jconfig
+from marl_dmfb_tpu.envs import make_env as jmake_env
+from marl_dmfb_tpu.models.networks import CRNNAgent as JCRNN
+from marl_dmfb_tpu.rollout import make_rollout as jmake_rollout
+from marl_dmfb_tpu.trainer import Trainer as JTrainer
+from marl_dmfb_tpu.trainer import restore_net_config as jrestore_net_config
+from marl_dmfb_tpu_torch import checkpoint as tckpt
+from marl_dmfb_tpu_torch import config as tconfig
+from marl_dmfb_tpu_torch.envs import make_env as tmake_env
+from marl_dmfb_tpu_torch.models.convert import (from_flax_learner_state,
+                                                from_flax_params)
+from marl_dmfb_tpu_torch.rollout import make_rollout as tmake_rollout
+from marl_dmfb_tpu_torch.trainer import Trainer, restore_net_config
+from tests.torch_port_util import (WEIGHTS, committed_export, replay_noise,
+                                   to_torch_state)
+from tools import export_flax_npz
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# artifact name -> its Orbax directory under artifacts/
+EXPORTS = {
+    "dmfb_20x20_4d_fov9_vdn_b64": "dmfb_20x20_4d_fov9_vdn_b64",
+    "dmfb_20x20_4d_bf16": "dmfb_20x20_4d_bf16/0_final_state",
+    "dmfb_10x10_2d_fov9_vdn_v01": "dmfb_10x10_2d_fov9_vdn_v01",
+    "dmfb_10x10_4d_fov9_vdn": "dmfb_10x10_4d_fov9_vdn",
+}
+# a sum of T = 80 per-step team rewards, each within 1e-5 of JAX's
+REWARD_SUM_ATOL = 1e-5
+
+torch.set_num_threads(1)
+
+
+def orbax(name):
+    return os.path.join(ROOT, "artifacts", EXPORTS[name])
+
+
+@functools.lru_cache(maxsize=None)
+def restored(name):
+    return jckpt.restore(orbax(name))
+
+
+def _leaves(tree, prefix=""):
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    if isinstance(tree, (list, tuple)):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}" if prefix else k)
+    elif tree is not None:
+        yield prefix, np.asarray(tree)
+
+
+def _export(tmp_path, name, what):
+    out = str(tmp_path / f"{name}_{what}.npz")
+    export_flax_npz.main([orbax(name), out, "--what", what])
+    return out
+
+
+@pytest.mark.parametrize("what", ["deploy", "full"])
+def test_export_round_trips_bitwise(tmp_path, what):
+    """Every leaf that the export keeps reads back bitwise, with its dtype,
+    from the file; the deploy export keeps the learner's params (this
+    checkpoint has no EMA), the full one the whole learner state."""
+    name = "dmfb_10x10_4d_fov9_vdn"
+    tree = restored(name)
+    back = tckpt.read_export(_export(tmp_path, name, what))
+    want = dict(_leaves({"learner": tree["learner"],
+                         "epsilon": tree["epsilon"]}))
+    if what == "deploy":
+        want = {k: v for k, v in want.items()
+                if k.startswith("learner/params/") or "/" not in k
+                or k == "learner/train_step"}
+    got = dict(_leaves({k: v for k, v in back.items() if k != "net_config"}))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    assert back["net_config"] == {
+        k: (v if isinstance(v, str) else int(v))
+        for k, v in tree["net_config"].items()}
+    assert "key" not in back
+
+
+@pytest.mark.parametrize("name", sorted(EXPORTS))
+def test_committed_export_equals_a_fresh_export(tmp_path, name):
+    fresh = np.load(_export(tmp_path, name, "deploy"))
+    kept = np.load(committed_export(name))
+    assert sorted(fresh.files) == sorted(kept.files)
+    for k in fresh.files:
+        assert fresh[k].dtype == kept[k].dtype, k
+        np.testing.assert_array_equal(fresh[k], kept[k], err_msg=k)
+    # the deploy weights are the EMA where the checkpoint has one
+    tree = restored(name)
+    src = "ema" if "ema" in tree else "learner/params"
+    assert all(k.startswith(src + "/") for k in fresh.files
+               if k not in ("epsilon", "train_step", "net_config"))
+
+
+def _link(tmp_path, name):
+    """A run directory whose model/vdn/fov9/0_final_state is the artifact
+    (for the JAX package) beside its deploy export (for the port)."""
+    d = tmp_path / "model" / "vdn" / "fov9"
+    d.mkdir(parents=True)
+    os.symlink(orbax(name), d / "0_final_state")
+    os.symlink(committed_export(name), d / "0_final_state.npz")
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("name", ["dmfb_20x20_4d_fov9_vdn_b64",
+                                  "dmfb_10x10_4d_fov9_vdn"])
+def test_params_only_load_takes_what_jax_takes(tmp_path, name):
+    """The JAX package's ``load_model(params_only=True)`` and the port's,
+    on the same checkpoint: the same weights (the EMA of the flagship, the
+    learner's params of the other), the same net config and epsilon."""
+    argv = ["dmfb", "--drop_num=4", "--fov=9", "--evaluate_task=2",
+            f"--data_dir={_link(tmp_path, name)}"]
+    ja = jconfig.get_evaluate_args(argv)
+    jrestore_net_config(ja, "final")
+    jt = JTrainer(jconfig.make_env_from_args(ja), ja, eval_only=True)
+    jt.load_model("final", params_only=True)
+
+    ta = tconfig.get_evaluate_args(argv + ["--device=cpu"])
+    restore_net_config(ta, "final")
+    tt = Trainer(tconfig.make_env_from_args(ta), ta, eval_only=True)
+    tt.load_model("final", params_only=True)
+    assert tt.args.hyper_hidden_dim == ja.hyper_hidden_dim == 24
+    want = from_flax_params(jax.tree.map(np.asarray,
+                                         jt.learner_state.params["agent"]))
+    for k, p in tt.net.named_parameters():
+        assert torch.equal(p.detach(), want[k]), k
+    assert float(tt.epsilon) == float(jt.epsilon)
+
+
+def test_full_export_resumes_the_learner_state(tmp_path):
+    """A training Trainer with the flagship's flags takes the full export
+    as it would take its own checkpoint: params, target params, Adam's
+    moments and count, the schedule count, the EMA and epsilon."""
+    name = "dmfb_20x20_4d_fov9_vdn_b64"
+    d = tmp_path / "model" / "vdn" / "fov9"
+    d.mkdir(parents=True)
+    export_flax_npz.main([orbax(name), str(d / "0_final_state.npz"),
+                          "--what", "full"])
+    args = tconfig.get_train_args(
+        ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=20", "--device=cpu",
+         "--lr_decay", "--param_ema=0.999", "--evaluate_task=2",
+         "--buffer_size=8", f"--data_dir={tmp_path}"], pri=False)
+    t = Trainer(tconfig.make_env_from_args(args), args)
+    gen = t.generator.get_state()
+    t.load_model("final")
+    tree = restored(name)
+    want = from_flax_learner_state(tree["learner"])
+    got = t.learner.state()
+    flat = lambda x: dict(_leaves(jax.tree.map(
+        lambda v: v.numpy() if isinstance(v, torch.Tensor) else v, x)))
+    assert flat(got).keys() == flat(want).keys()
+    for k, v in flat(want).items():
+        np.testing.assert_array_equal(flat(got)[k], v, err_msg=k)
+    assert set(t.learner.opt_state) == {"count", "mu", "nu",
+                                        "schedule_count"}
+    ema = from_flax_params(tree["ema"]["agent"])
+    for k, p in t.ema_net.named_parameters():
+        assert torch.equal(p, ema[k]), k
+    assert float(t.epsilon) == float(tree["epsilon"])
+    assert torch.equal(t.generator.get_state(), gen)   # no key to take
+
+
+def test_flagship_greedy_matches_jax_at_20x20():
+    """The flagship's EMA weights, the JAX package's from its Orbax
+    checkpoint and the port's from the committed export, evaluated greedily
+    on 16 shared 20x20 chips with JAX's move draws."""
+    name = "dmfb_20x20_4d_fov9_vdn_b64"
+    kw = dict(width=20, length=20, n_droplets=4, fov=9)
+    jenv, tenv = jmake_env("dmfb", **kw), tmake_env("dmfb", **kw)
+    N, A, T, B = 4, 5, jenv.episode_limit, 16
+    params = restored(name)["ema"]["agent"]
+    jnet = JCRNN(n_actions=A, obs_channels=3, fov=9, conv_channels=24)
+    states = jax.vmap(jenv.init)(jax.random.split(jax.random.PRNGKey(3), B))
+    key = jax.random.PRNGKey(12)
+    jres = jmake_rollout(jenv, jnet, 128)(
+        params, states, key, jnp.float32(0), jnp.float32(0), jnp.float32(0),
+        greedy=True)
+
+    args = tconfig.get_evaluate_args(
+        ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=20",
+         "--evaluate_task=2", "--device=cpu",
+         f"--data_dir={os.path.join(WEIGHTS, name)}"])
+    restore_net_config(args, "final")
+    trainer = Trainer(tconfig.make_env_from_args(args), args, eval_only=True)
+    trainer.load_model("final", params_only=True)
+    reset = jax.jit(jax.vmap(jenv.reset))(states)
+    t_reset = to_torch_state(reset)
+    troll = tmake_rollout(tenv._replace(reset=lambda s, g: t_reset),
+                          trainer.net, 128)
+    tres = troll(to_torch_state(states), None, 0.0, 0.0, 0.0, greedy=True,
+                 noise=replay_noise(key, reset, T, B, N, A))
+    np.testing.assert_array_equal(np.array(jres.steps), tres.steps.numpy())
+    np.testing.assert_array_equal(np.array(jres.success),
+                                  tres.success.numpy())
+    np.testing.assert_allclose(np.array(jres.reward), tres.reward.numpy(),
+                               rtol=0, atol=REWARD_SUM_ATOL)
+    assert tres.success.sum() >= 13     # a trained policy (0.96 recorded)

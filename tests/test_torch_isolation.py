@@ -2,11 +2,14 @@
 card's tools (``tools/profile_torch_rollout.py``,
 ``tools/profile_torch_learn.py``, ``tools/time_dmfb_step.py``)
 import nothing of JAX, its libraries, YAML, matplotlib or the JAX package
-(the GPU machine has none of them), and the entry point runs on the card
-unless told otherwise, raising where there is none."""
+(the GPU machine has none of them), nor the one JAX-side tool of the port,
+``tools/export_flax_npz.py``, whose ``.npz`` files they read with numpy;
+and the entry point runs on the card unless told otherwise, raising where
+there is none."""
 
 import ast
 import pathlib
+import re
 
 import pytest
 import torch
@@ -18,6 +21,9 @@ PORT_FILES = sorted((ROOT / "marl_dmfb_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_rollout.py",
     ROOT / "tools" / "profile_torch_learn.py",
     ROOT / "tools" / "time_dmfb_step.py"]
+EXPORTER = ROOT / "tools" / "export_flax_npz.py"
+# the committed export of the 10x10-4d policy that the evaluation tests load
+POLICY = ROOT / "tests" / "fixtures" / "torch_weights" / "dmfb_10x10_4d_fov9_vdn"
 
 
 def _imported_roots(path):
@@ -42,9 +48,55 @@ def test_port_imports_nothing_of_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _code_names(path):
+    """The modules a file imports (full dotted names) and the string
+    constants of its code (docstrings, which may tell a reader where a
+    file comes from, left out)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)):
+            docs.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+            yield from (a.name for a in node.names)
+        elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
+              and id(node) not in docs):
+            yield node.value
+
+
+def test_no_port_file_names_the_exporter():
+    """The exporter imports JAX; the port and its card tools read its output
+    and neither import nor run it."""
+    assert EXPORTER.is_file() and EXPORTER not in PORT_FILES
+    assert "jax" in set(_imported_roots(EXPORTER))
+    for path in PORT_FILES:
+        named = [n for n in _code_names(path)
+                 if re.search(r"\bexport_flax_npz\b", n)]
+        assert not named, f"{path.relative_to(ROOT)} names {named}"
+
+
+def test_exporter_scan_catches_a_use(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text('"""Made by tools/export_flax_npz.py."""\n'
+                 "import subprocess\n"
+                 "subprocess.run(['python', 'tools/export_flax_npz.py'])\n"
+                 "from tools import export_flax_npz\n")
+    names = list(_code_names(f))
+    assert "python" in names and "export_flax_npz" in names
+    assert "Made by tools/export_flax_npz.py." not in names
+
+
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for want in ("chip_smoke.py", "marl_dmfb_tpu_torch/envs/dmfb.py",
+                 "marl_dmfb_tpu_torch/envs/dmfb_v01.py",
+                 "marl_dmfb_tpu_torch/eva_degrade.py",
                  "marl_dmfb_tpu_torch/ops/dmfb_step.py",
                  "marl_dmfb_tpu_torch/evaluate.py",
                  "marl_dmfb_tpu_torch/replay.py",
@@ -81,11 +133,12 @@ def test_evaluate_runs_on_cpu_when_asked():
     from marl_dmfb_tpu_torch import evaluate
 
     m = evaluate.main(["dmfb", "--drop_num=4", "--fov=9",
-                       "--evaluate_task=3", "--device", "cpu"])
+                       "--evaluate_task=3", "--device", "cpu",
+                       f"--data_dir={POLICY}"])
     assert set(m) == {"reward", "steps", "constraints", "success_rate"}
     assert 0 < m["steps"] <= 40 and 0.0 <= m["success_rate"] <= 1.0
     rows = evaluate.main(["dmfb", "--boards=10,12", "--evaluate_task=2",
-                          "--device=cpu"])
+                          "--device=cpu", f"--data_dir={POLICY}"])
     assert [size for size, _ in rows] == [10, 12]
 
 

@@ -51,11 +51,24 @@ def test_train_defaults_to_cuda_and_raises_without_it(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    "--mesh=4", "--local_sampling", "--vmap_seeds=2", "--compute_dtype=bf16",
-    "--remat", "--fused_streams"])
+    "--mesh=4", "--local_sampling", "--vmap_seeds=2", "--remat",
+    "--fused_streams"])
 def test_unported_train_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tconfig.get_train_args(["dmfb", flag], pri=False)
+
+
+def test_compute_dtype_bf16_is_ported():
+    """``--compute_dtype=bf16`` parses as JAX's does and builds a trainer
+    whose net multiplies in bf16 (``tests/test_torch_bf16.py`` holds its
+    numbers to JAX's)."""
+    argv = ["dmfb", "--compute_dtype=bf16"]
+    t = tconfig.get_train_args(argv, pri=False)
+    assert t.compute_dtype == jconfig.get_train_args(
+        argv, pri=False).compute_dtype == "bf16"
+    t.device, t.buffer_size, t.evaluate_task = "cpu", 4, 2
+    trainer = Trainer(make_env_from_args(t), t)
+    assert trainer.net.gru.compute_dtype is torch.bfloat16
 
 
 def test_train_cli_runs_resumes_and_evaluates_on_cpu(tmp_path):

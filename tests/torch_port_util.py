@@ -3,6 +3,7 @@ with the JAX package, carry them to the PyTorch port as numpy arrays, and
 compare the two packages' outputs."""
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +19,16 @@ STATE_EXACT = ("pos", "start", "goal", "dist", "block_mask", "usage",
                "step_count", "cum_constraints")
 OUT_EXACT = ("obs", "dones", "terminated", "constraints", "success")
 REWARD_ATOL = 1e-5   # float32 sums taken in another order
+# the deploy exports of JAX artifacts (tools/export_flax_npz.py), each a run
+# directory holding model/vdn/fov9/0_final_state.npz
+WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures", "torch_weights")
+
+
+def committed_export(name: str) -> str:
+    """The committed deploy export of the artifact ``name``."""
+    return os.path.join(WEIGHTS, name, "model", "vdn", "fov9",
+                        "0_final_state.npz")
 
 # pytest-xdist runs several workers on the same cores, and torch's intra-op
 # pool in each would oversubscribe them: the port's many small CPU ops then

@@ -67,7 +67,7 @@ def main(argv=None):
                                     for i in range(4)])
         for tile in opts.tiles or [None]:
             if tile is not None:
-                dmfb_step.tile_chips = lambda params, b, c=tile: c
+                dmfb_step.tile_chips = lambda params, b, *mode, c=tile: c
             try:
                 ms = cs.device_ms([lambda x=x: dmfb_step.step_batch(p, *x)
                                    for x in sets])
