@@ -42,14 +42,27 @@ Phases, each printing its seconds:
    less ``SUCCESS_SLACK``; the kernel's no-observation mode (the v0.1
    step's transition) against its plain version at B = 16384 and B = 100,
    and timed; a bf16 forward on the card against the CPU's, and timed
-   beside float32; and a 2-epoch x 20-task degradation sweep on 50x50.
+   beside float32; and a 2-epoch x 20-task degradation sweep on 50x50;
+7. MEDA and QMIX: a full 30x60-4d MEDA episode (T = 90) of the plain
+   PyTorch step on the card against the CPU in v0, v0.1 and v0.2 (integer,
+   bool and observation outputs bitwise, rewards within 1e-6), the step's
+   time at B = 64 and B = 8192 and the MEDA actor's env-steps/s at
+   B = 8192; the JAX package's MEDA VDN, MEDA QMIX and DMFB QMIX policies
+   (the last also on 50x50, its 20x20 mixer dropped) through the evaluate
+   entry point, 100 tasks each, held to their recorded rates less
+   ``SUCCESS_SLACK``, with the kernel launched T times a DMFB QMIX rollout;
+   ``train meda --drop_num=4`` and ``train dmfb --alg=qmix
+   --chip_size=20`` at the CLI's widths for a few cycles, timed; the QMIX
+   learner of MEDA 30x60-3d on the card against the CPU; and a 2-epoch x
+   20-task MEDA degradation sweep.
 
-The kernel JSON line (the kernel's numbers), a training JSON line and a
-trained-policies JSON line come before the last, ``{"ok": true, "device":
-{...}}``.  Any failed check
+The kernel JSON line (the kernel's numbers), a training JSON line, a
+trained-policies JSON line and a MEDA/QMIX JSON line come before the last,
+``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is non-zero and no result line is printed.  Exits
 non-zero at once where CUDA is unavailable.  Writes nothing but the kernel
-build and the training run's checkpoints and curves under ``build/``.
+build, the training runs' checkpoints and curves and the sweeps' arrays
+under ``build/``.
 """
 
 import json
@@ -112,6 +125,42 @@ BF16_H_ATOL = 2e-2
 BF16_ROWS = 8192                  # rows compared, card against CPU
 BF16_TIMED_ROWS = KERNEL_B * 4    # one actor step's rows: B chips x N agents
 SWEEP = dict(board=50, epochs=2, tasks=20)
+# phase 7: MEDA and QMIX.  The MEDA env on the card against the CPU at
+# MEDA_CMP_B chips (rewards: float32 sums of the same terms, one order);
+# step times at MEDA_TIMED_B; the JAX package's MEDA and QMIX policies held
+# to artifacts/README.md's rates less SUCCESS_SLACK; training at the CLI's
+# widths for a few cycles; the QMIX learner on the card against the CPU at
+# a minibatch of QMIX_LEARN_BATCH episodes (the CPU's share of the time);
+# a MEDA sweep
+MEDA_CMP_B = 256
+MEDA_REWARD_ATOL = 1e-6
+MEDA_TIMED_B = (64, 8192)
+MEDA_WALL_STEPS = 20
+MEDA_VDN = "meda_30x60_4d_fov19_vdn"
+MEDA_TRAINED = [
+    # (name, export, CLI, recorded success)
+    ("meda_vdn_30x60_4d", MEDA_VDN, ["meda", "--drop_num=4"], 0.96),
+    ("meda_qmix_30x60_3d", "meda_30x60_3d_fov19_qmix",
+     ["meda", "--drop_num=3", "--alg=qmix"], 0.98),
+    ("dmfb_qmix_20x20", "dmfb_20x20_4d_fov9_qmix",
+     ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=20", "--alg=qmix"],
+     1.00),
+    # the 20x20 mixer does not fit 50x50: dropped, the agent evaluated
+    ("dmfb_qmix_50x50", "dmfb_20x20_4d_fov9_qmix",
+     ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=50", "--alg=qmix"],
+     0.98),
+]
+MEDA_QMIX_TRAIN = [
+    # (name, CLI, env steps, (conv, hidden, batch, replay, B, updates a
+    # cycle, mixer state))
+    ("meda_vdn_4d", ["meda", "--drop_num=4"], 4000,
+     (32, 128, 64, 10000, 10, 2, None)),
+    ("dmfb_qmix_20x20", ["dmfb", "--alg=qmix", "--chip_size=20",
+                         "--drop_num=4", "--fov=9"], 1200,
+     (24, 128, 128, 5000, 2, 1, 1200)),
+]
+QMIX_LEARN_BATCH = 8
+MEDA_SWEEP = dict(epochs=2, tasks=20)
 
 
 def log(msg):
@@ -262,20 +311,20 @@ def compare_kernel(tdmfb, dmfb_step, params, batch, generator,
     return worst
 
 
-def compare_learner(VDNLearner, build_agent_net, args, state, batch):
-    """``LEARN_UPDATES`` updates of one learner state on one minibatch, on
-    the card and on the CPU; returns the largest loss difference relative
-    to the CPU's, the largest param difference outside noise gradients and
-    in all, and the card's learner."""
-    cpu = VDNLearner(args, build_agent_net(args))
-    card = VDNLearner(args, build_agent_net(args).cuda())
+def compare_learner(make_learner, state, batch, updates=None):
+    """``updates`` (default ``LEARN_UPDATES``) updates of one learner state
+    on one minibatch, on the card and on the CPU; ``make_learner(device)``
+    builds a learner there.  Returns the largest loss difference relative
+    to the CPU's, the largest param difference (the agent's and a mixer's)
+    outside noise gradients and in all, and the card's learner."""
+    cpu, card = make_learner("cpu"), make_learner("cuda")
     cpu.load_state(state)
     card.load_state(state)
     cpu_batch = {k: v.cpu() for k, v in batch.items()}
     noisy = {k: torch.zeros(v.shape, dtype=torch.bool)
-             for k, v in cpu.params.items()}
+             for k, v in cpu.all_params.items()}
     loss_rel = 0.0
-    for _ in range(LEARN_UPDATES):
+    for _ in range(updates or LEARN_UPDATES):
         _, grads = cpu.loss_and_grads(cpu_batch)
         norm = torch.sqrt(sum((g.double() ** 2).sum()
                               for g in grads.values()))
@@ -287,8 +336,8 @@ def compare_learner(VDNLearner, build_agent_net, args, state, batch):
             raise AssertionError(f"the card's loss is {got}")
         loss_rel = max(loss_rel, abs(got - want) / abs(want))
     clean = worst = 0.0
-    for k, p in cpu.params.items():
-        diff = (card.params[k].detach().cpu() - p.detach()).abs()
+    for k, p in cpu.all_params.items():
+        diff = (card.all_params[k].detach().cpu() - p.detach()).abs()
         kept = diff[~noisy[k]]
         clean = max(clean, float(kept.max()) if kept.numel() else 0.0)
         worst = max(worst, float(diff.max()))
@@ -477,13 +526,334 @@ def trained_policies(smi) -> dict:
     return out
 
 
+def _toward(center, dest, rng_u, rand_a):
+    """MEDA actions: the move toward the goal, or ``rand_a`` where
+    ``rng_u`` < 0.4 (so that droplets reach their goals and snap)."""
+    d = (dest - center).sign() + 1                   # (B, N, 2) in {0, 1, 2}
+    table = torch.tensor([[7, 3, 6], [0, 8, 2], [4, 1, 5]], dtype=torch.int32)
+    toward = table[d[..., 0].long(), d[..., 1].long()]
+    return torch.where(rng_u < 0.4, rand_a, toward)
+
+
+def run_memory_start() -> int:
+    """Reset the peak-memory count; returns the bytes allocated now, which
+    a run's own peak is read above (earlier phases may hold tensors)."""
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def run_peak_mib(base: int) -> float:
+    """MiB that a run allocated at its peak, above ``base``."""
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def meda_card_vs_cpu(tmeda, smi) -> float:
+    """A full 30x60-4d MEDA episode of ``step_core`` (which observes) on the
+    card and on the CPU from the same chips, actions and draws, in each
+    observation version; half the chips on degraded health.  Integer, bool
+    and observation outputs must be bitwise equal, rewards within
+    ``MEDA_REWARD_ATOL``.  Returns the largest reward difference."""
+    worst = 0.0
+    g = torch.Generator().manual_seed(707)
+    B = MEDA_CMP_B
+    for version in ("v0", "v0.1", "v0.2"):
+        p = tmeda.MEDAParams(obs_version=version, b_degrade=True,
+                             per_degrade=1.0)
+        cpu = tmeda.init(p, B, g, "cpu")
+        health = cpu.health.clone()
+        health[: B // 2] = torch.rand(health[: B // 2].shape,
+                                      generator=g) * 0.5 + 0.5
+        cpu = cpu._replace(health=health)
+        card = type(cpu)(*(t.cuda() for t in cpu))
+        snapped = 0
+        for t in range(p.episode_limit):
+            a = _toward(cpu.center, cpu.dest, torch.rand((B, 4), generator=g),
+                        torch.randint(0, 9, (B, 4), generator=g,
+                                      dtype=torch.int32))
+            u = torch.rand((B, 4), generator=g)
+            cpu, oc = tmeda.step_core(p, cpu, a, u)
+            card, og = tmeda.step_core(p, card, a.cuda(), u.cuda())
+            for name, x, y in ([(f, getattr(cpu, f), getattr(card, f))
+                                for f in tmeda.MEDAState._fields]
+                               + [(f, getattr(oc, f), getattr(og, f)) for f in
+                                  ("obs", "dones", "terminated",
+                                   "constraints", "success")]):
+                if not torch.equal(x, y.cpu()):
+                    raise AssertionError(
+                        f"MEDA {version} step {t}: {name} differs, card vs "
+                        f"CPU ({int((x != y.cpu()).sum())} elements)")
+            diff = float((oc.rewards - og.rewards.cpu()).abs().max())
+            worst = max(worst, diff)
+            if not diff <= MEDA_REWARD_ATOL:
+                raise AssertionError(f"MEDA {version} step {t}: rewards "
+                                     f"differ by {diff}")
+        snapped = int(cpu.status.sum())
+        log(f"phase 7: [{smi}] MEDA 30x60-4d {version}, B={B}, T="
+            f"{p.episode_limit}: card == CPU at every step (rewards max "
+            f"|diff| {worst:.3g}); {snapped} droplets on their goals, "
+            f"usage total {float(cpu.usage.sum())}")
+    return worst
+
+
+def meda_step_times(tmeda, smi) -> dict:
+    """ms per lockstep MEDA step (v0.2, 30x60-4d) on the card: the device
+    time of ``step_core`` (a CUDA graph, ``device_ms``) and the wall time
+    of chained steps (host clock, synchronised), at each ``MEDA_TIMED_B``."""
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(77)
+    p = tmeda.MEDAParams(obs_version="v0.2")
+    for B in MEDA_TIMED_B:
+        sets = []
+        for _ in range(4):
+            st = tmeda.init(p, B, g, "cuda")
+            a = torch.randint(0, 9, (B, 4), generator=g, device="cuda",
+                              dtype=torch.int32)
+            sets.append((st, a, torch.rand((B, 4), generator=g,
+                                           device="cuda")))
+        dev = device_ms([lambda x=x: tmeda.step_core(p, *x) for x in sets],
+                        iters=20)
+        st = sets[0][0]
+        for _ in range(3):
+            st, _ = tmeda.step_core(p, st, sets[0][1], sets[0][2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MEDA_WALL_STEPS):
+            st, _ = tmeda.step_core(p, st, *sets[i % 4][1:])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / MEDA_WALL_STEPS * 1e3
+        out[B] = dict(device_ms=dev, wall_ms=wall)
+        log(f"phase 7: [{smi}] MEDA step_core v0.2 30x60-4d at B={B}: "
+            f"device {dev:.3f} ms, wall {wall:.3f} ms a lockstep step")
+    return out
+
+
+def meda_qmix(smi) -> dict:
+    """Phase 7: MEDA and QMIX on the card (module docstring); raises on any
+    failed check, returns the numbers."""
+    from marl_dmfb_tpu_torch import eva_degrade, evaluate, train
+    from marl_dmfb_tpu_torch.algos.qlearn import QLearner
+    from marl_dmfb_tpu_torch.config import (get_evaluate_args,
+                                            get_train_args,
+                                            make_env_from_args)
+    from marl_dmfb_tpu_torch.envs import meda as tmeda
+    from marl_dmfb_tpu_torch.models.networks import (build_agent_net,
+                                                     build_mixer)
+    from marl_dmfb_tpu_torch.ops import dmfb_step
+    from marl_dmfb_tpu_torch.replay import sample, store
+    from marl_dmfb_tpu_torch.rollout import make_rollout
+    from marl_dmfb_tpu_torch.trainer import Trainer, restore_net_config
+
+    t7 = time.perf_counter()
+    out = {"phase_s": {}}
+
+    # 1. the MEDA env, card against CPU, and its times
+    t0 = time.perf_counter()
+    out["env_reward_diff"] = meda_card_vs_cpu(tmeda, smi)
+    out["step"] = meda_step_times(tmeda, smi)
+    argv = ["meda", "--drop_num=4", "--evaluate_task=2",
+            f"--data_dir={os.path.join(WEIGHTS, MEDA_VDN)}"]
+    args = get_evaluate_args(argv)
+    restore_net_config(args, "final")
+    env = make_env_from_args(args)
+    policy = Trainer(env, args, eval_only=True)
+    policy.load_model("final", params_only=True)
+    rollout = make_rollout(env, policy.net, args.rnn_hidden_dim)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    B = MEDA_TIMED_B[-1]
+    chips = rollout(env.init(B, g, "cuda"), g, 1.0, 0.0, 0.05).env_states
+    torch.cuda.synchronize()
+    base = run_memory_start()
+    dmfb_step.launches = 0
+    t1 = time.perf_counter()
+    res = rollout(chips, g, 0.3, 0.0, 0.05)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    if dmfb_step.launches:
+        raise AssertionError("the MEDA actor launched the DMFB kernel")
+    T = env.episode_limit
+    out["actor"] = dict(B=B, T=T, seconds=dt, env_steps_per_s=B * T / dt,
+                        executed_per_s=int((~res.episodes["padded"]).sum())
+                        / dt, peak_mib=run_peak_mib(base),
+                        success=float(res.success.float().mean()))
+    log(f"phase 7: [{smi}] MEDA actor (30x60-4d VDN export, epsilon 0.3), "
+        f"B={B}, T={T}: {dt * 1e3:.1f} ms, {B * T / dt:.0f} lockstep "
+        f"env-steps/s, {out['actor']['executed_per_s']:.0f} executed, "
+        f"peak memory {out['actor']['peak_mib']:.1f} MiB, success "
+        f"{out['actor']['success']:.3f}")
+    del chips, res, rollout, policy
+    out["phase_s"]["env"] = time.perf_counter() - t0
+
+    # 2. the trained policies, greedy over 100 tasks each
+    t0 = time.perf_counter()
+    out["policies"] = {}
+    launches_eval = 0
+    for name, export, argv, recorded in MEDA_TRAINED:
+        argv = argv + ["--evaluate_task=100",
+                       f"--data_dir={os.path.join(WEIGHTS, export)}"]
+        dmfb_step.launches = dmfb_step.launches_no_obs = 0
+        m = evaluate.main(argv)
+        launches = dmfb_step.launches
+        a = get_evaluate_args(argv)
+        T = make_env_from_args(a).episode_limit
+        want = T if a.name == "dmfb" else 0
+        if launches != want or dmfb_step.launches_no_obs:
+            raise AssertionError(f"{name}: {launches} kernel launches, "
+                                 f"expected {want}")
+        launches_eval += launches
+        floor = recorded - SUCCESS_SLACK
+        log(f"phase 7: [{smi}] {name} ({export}, {a.width}x{a.length}, "
+            f"{a.alg}): success {m['success_rate']:.2f} (recorded "
+            f"{recorded:.2f}, floor {floor:.2f}), steps {m['steps']:.2f}, "
+            f"reward {m['reward']:.4f}, kernel launches {launches}")
+        if not m["success_rate"] >= floor - 1e-9:
+            raise AssertionError(f"{name}: success {m['success_rate']} "
+                                 f"below {floor}")
+        out["policies"][name] = dict(m, recorded=recorded, floor=floor,
+                                     launches=launches)
+    out["launches_qmix_eval"] = launches_eval
+    out["phase_s"]["policies"] = time.perf_counter() - t0
+
+    # 3. training at full width, cut in cycles
+    t0 = time.perf_counter()
+    out["train"] = {}
+    trainer = learner = batch = None
+    for name, argv, steps, width in MEDA_QMIX_TRAIN:
+        data_dir = os.path.join(ROOT, "build", f"chip_smoke_{name}")
+        shutil.rmtree(data_dir, ignore_errors=True)
+        argv = argv + [f"--exact_steps={steps}", "--evaluate_task=100",
+                       "--evaluate_cycle=1000000", f"--data_dir={data_dir}"]
+        trainer = learner = batch = None     # the last run's replay
+        torch.cuda.synchronize()
+        base = run_memory_start()
+        dmfb_step.launches = 0
+        t1 = time.perf_counter()
+        trainer = train.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        launches = dmfb_step.launches
+        peak = run_peak_mib(base)
+        a = trainer.args
+        got = (a.hyper_hidden_dim, a.rnn_hidden_dim, a.batch_size,
+               a.buffer_size, trainer.B, trainer.updates_per_rollout,
+               a.state_shape if trainer.mixer is not None else None)
+        if got != width:
+            raise AssertionError(f"{name} trained at (conv, hidden, batch, "
+                                 f"replay, B, updates a cycle, mixer state) "
+                                 f"= {got}, expected {width}")
+        cycles, evals = trainer.n_cycles, len(trainer.success_rate)
+        T = trainer.env.episode_limit
+        want = T * (cycles + evals) if a.name == "dmfb" else 0
+        if launches != want or evals != 2 or cycles < 3:
+            raise AssertionError(f"{name}: {launches} kernel launches in "
+                                 f"{cycles} cycles and {evals} evaluations")
+        losses = torch.stack(trainer.losses).cpu()
+        if not bool(losses.isfinite().all()):
+            raise AssertionError(f"{name}: losses {losses.tolist()}")
+        learner = trainer.learner
+        updates = learner.train_step
+        batch = sample(trainer.replay, a.batch_size, trainer.generator)
+        learner.update(batch)
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        for _ in range(TIMED_UPDATES):
+            learner.update(batch)
+        end_ev.record()
+        end_ev.synchronize()
+        update_ms = start_ev.elapsed_time(end_ev) / TIMED_UPDATES
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(TIMED_CYCLES):
+            trainer.train_cycle()
+        torch.cuda.synchronize()
+        cycle_ms = (time.perf_counter() - t1) / TIMED_CYCLES * 1e3
+        replay_mib = sum(v.numel() * v.element_size()
+                         for v in trainer.replay.data.values()) / 2 ** 20
+        out["train"][name] = dict(
+            cycles=cycles, updates=updates, seconds=seconds,
+            launches=launches, update_ms=update_ms, cycle_ms=cycle_ms,
+            peak_mib=peak, replay_mib=replay_mib,
+            losses=losses.tolist(), success=trainer.success_rate)
+        log(f"phase 7: [{smi}] train {' '.join(argv[:4])}: {cycles} cycles "
+            f"of B={trainer.B} ({updates} updates at batch "
+            f"{a.batch_size}) in {seconds:.2f} s, kernel launches "
+            f"{launches}; update {update_ms:.2f} ms, cycle {cycle_ms:.1f} ms; "
+            f"replay {replay_mib:.1f} MiB, peak memory {peak:.1f} MiB; "
+            f"success {trainer.success_rate}")
+    trainer = learner = batch = None
+    out["launches_qmix_train"] = out["train"]["dmfb_qmix_20x20"]["launches"]
+    out["phase_s"]["train"] = time.perf_counter() - t0
+
+    # 4. the QMIX learner on the card against the CPU, MEDA 30x60-3d
+    t0 = time.perf_counter()
+    qargs = get_train_args(
+        ["meda", "--drop_num=3", "--alg=qmix", "--n_parallel_envs="
+         f"{QMIX_LEARN_BATCH}", f"--buffer_size={QMIX_LEARN_BATCH}",
+         f"--batch_size={QMIX_LEARN_BATCH}", "--evaluate_task=1",
+         f"--data_dir={os.path.join(ROOT, 'build', 'chip_smoke_qmix_cmp')}"],
+        pri=False)
+    qt = Trainer(make_env_from_args(qargs), qargs)
+    res = qt.rollout(qt.env_states, qt.generator, 1.0, 0.0, 0.05)
+    replay = store(qt.replay, res.episodes)
+    batch = sample(replay, QMIX_LEARN_BATCH,
+                   idx=torch.arange(QMIX_LEARN_BATCH, device="cuda"))
+    loss_rel, clean, worst, _ = compare_learner(
+        lambda dev: QLearner(qargs, build_agent_net(qargs).to(dev),
+                             build_mixer(qargs).to(dev)),
+        qt.learner.state(), batch)
+    adam_bound = 2 * qargs.lr * LEARN_UPDATES
+    log(f"phase 7: QMIX learner (MEDA 30x60-3d, mixer state "
+        f"{qargs.state_shape}) card vs CPU over {LEARN_UPDATES} updates at "
+        f"batch {QMIX_LEARN_BATCH}: loss rel diff {loss_rel:.3g} (<= "
+        f"{LOSS_RTOL}), params max diff {clean:.3g} outside noise gradients "
+        f"(<= {PARAM_ATOL}), {worst:.3g} in all (<= {adam_bound:.3g})")
+    if not (loss_rel <= LOSS_RTOL and clean <= PARAM_ATOL
+            and worst <= adam_bound):
+        raise AssertionError("the QMIX learner on the card departs from the "
+                             "CPU")
+    out["qmix_card_vs_cpu"] = dict(loss_rel=loss_rel, param_diff=clean,
+                                   param_diff_all=worst)
+    out["phase_s"]["qmix_learner"] = time.perf_counter() - t0
+
+    # 5. a MEDA degradation sweep with the 4-droplet export
+    t0 = time.perf_counter()
+    data_dir = os.path.join(ROOT, "build", "chip_smoke_meda_sweep")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    model = os.path.join(data_dir, "model", "vdn", "fov19")
+    os.makedirs(model)
+    shutil.copy(os.path.join(WEIGHTS, MEDA_VDN, "model", "vdn", "fov19",
+                             "0_final_state.npz"), model)
+    dmfb_step.launches = 0
+    res = eva_degrade.main(
+        ["meda", "--drop_num=4", f"--evaluate_task={MEDA_SWEEP['tasks']}",
+         f"--evaluate_epoch={MEDA_SWEEP['epochs']}", f"--data_dir={data_dir}"])
+    health, usage = res["health"], res["usage"]
+    worn = np.diff(health, axis=1) < 0
+    if dmfb_step.launches or (np.diff(health, axis=1) > 0).any() or \
+            ((np.diff(usage, axis=1) < 0) & ~worn).any() or \
+            health.shape != (5, MEDA_SWEEP["epochs"], 30, 60):
+        raise AssertionError("the MEDA sweep's wear went backwards")
+    per_epoch = res["success"].mean(axis=0).tolist()
+    seconds = time.perf_counter() - t0
+    log(f"phase 7: [{smi}] MEDA degradation sweep, 30x60-4d, 5 chips, "
+        f"{MEDA_SWEEP['epochs']} epochs x {MEDA_SWEEP['tasks']} tasks: "
+        f"success per epoch {per_epoch}, steps per epoch "
+        f"{res['steps'].mean(axis=0).tolist()}, cells worn "
+        f"{int(worn.sum())}, usage total {float(usage[:, -1].sum())}, "
+        f"{seconds:.2f} s")
+    out["sweep"] = dict(success_per_epoch=per_epoch, seconds=seconds)
+    out["phase_s"]["total"] = time.perf_counter() - t7
+    log(f"phase 7: {out['phase_s']['total']:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from marl_dmfb_tpu_torch import checkpoint, evaluate, train
-    from marl_dmfb_tpu_torch.algos.qlearn import VDNLearner
+    from marl_dmfb_tpu_torch.algos.qlearn import QLearner
     from marl_dmfb_tpu_torch.config import get_evaluate_args
     from marl_dmfb_tpu_torch.config import make_env_from_args
     from marl_dmfb_tpu_torch.replay import sample
@@ -719,7 +1089,8 @@ def main() -> int:
            % trainer.replay.size)
     batch = sample(trainer.replay, targs.batch_size, idx=idx)
     loss_rel, clean, worst, card = compare_learner(
-        VDNLearner, build_agent_net, targs, learner.state(), batch)
+        lambda dev: QLearner(targs, build_agent_net(targs).to(dev)),
+        learner.state(), batch)
     adam_bound = 2 * targs.lr * LEARN_UPDATES
     log(f"phase 5: learner card vs CPU over {LEARN_UPDATES} updates at batch "
         f"{targs.batch_size}: loss rel diff {loss_rel:.3g} (<= {LOSS_RTOL}), "
@@ -753,6 +1124,7 @@ def main() -> int:
     log(f"phase 5: {time.perf_counter() - t0:.2f} s")
 
     phase6 = trained_policies(smi)
+    phase7 = meda_qmix(smi)
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     log(smi)
@@ -786,6 +1158,8 @@ def main() -> int:
         "no_obs_plain_ms_b100": phase6["no_obs"][EVAL_B]["plain_ms"],
         "no_obs_bound_ms_b100": phase6["no_obs"][EVAL_B]["bound_ms"],
         "no_obs_registers": main4[False][0]["registers"],
+        "launches_qmix_eval": phase7["launches_qmix_eval"],
+        "launches_qmix_train": phase7["launches_qmix_train"],
     }]}))
     log(json.dumps({"train": {
         "cycles": cycles, "updates": updates,
@@ -797,6 +1171,7 @@ def main() -> int:
         "device": smi}}))
     log(json.dumps({"trained": {
         k: v for k, v in phase6.items() if k != "no_obs"}, "device": smi}))
+    log(json.dumps({"meda_qmix": phase7, "device": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,17 @@
-"""The VDN learner (JAX ``algos/qlearn.py``).
+"""The VDN and QMIX learner (JAX ``algos/qlearn.py``, ``make_learner``).
 
 One update samples a minibatch of episodes, unrolls the agent net over the
 episode's T steps for the eval stream (with gradients) and the target
-stream (without), takes the chosen and the masked-max target Qs, sums them
-over the agents (VDN), and minimises the masked TD loss with a global-norm
-clip and Adam (or RMSprop, or SGD).  The target net is copied from the eval
-net every ``target_update_cycle`` updates.
+stream (without), takes the chosen and the masked-max target Qs, mixes them
+over the agents — a sum for VDN, the state-conditioned mixer for QMIX, on
+the episode's global states ``s_ext`` — and minimises the masked TD loss
+with a global-norm clip and Adam (or RMSprop, or SGD).  The clip, the
+optimizer, the EMA and the target sync act on the agent's and the mixer's
+parameters alike, as optax does on the JAX package's whole params tree; the
+target nets are copied from the eval nets every ``target_update_cycle``
+updates.  ``--remat`` recomputes each time step's activations in the
+backward pass (``torch.utils.checkpoint``), as JAX's ``jax.checkpoint``
+around the scan body; the loss and the gradients are the same.
 
 The JAX package had no Pallas kernel here; the port runs cuDNN/cuBLAS
 through ``torch.nn`` and writes the optimizer step by hand, in optax's
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from marl_dmfb_tpu_torch.models.networks import vdn_mix
 from marl_dmfb_tpu_torch.replay import ReplayState, sample
@@ -150,41 +157,83 @@ def make_optimizer(args) -> Optimizer:
     return Optimizer(kind, args.lr, args.grad_norm_clip, decay_steps)
 
 
-def unroll(net: nn.Module, inputs: torch.Tensor,
-           rnn_hidden: int) -> torch.Tensor:
+def unroll(net: nn.Module, inputs: torch.Tensor, rnn_hidden: int,
+           remat: bool = False) -> torch.Tensor:
     """The whole net in a loop over time on ``(b*N)`` rows: inputs
-    ``(b, T, N, in_dim)`` -> Qs ``(b, T, N, n_actions)``."""
+    ``(b, T, N, in_dim)`` -> Qs ``(b, T, N, n_actions)``.  With ``remat``
+    each step's activations are recomputed in the backward pass instead of
+    kept."""
     b, T, N = inputs.shape[:3]
     x_tb = inputs.transpose(0, 1).reshape(T, b * N, -1)
     h = inputs.new_zeros((b * N, rnn_hidden))
+    remat = remat and torch.is_grad_enabled()
     qs = []
     for t in range(T):
-        q, h = net(x_tb[t], h)
+        if remat:
+            q, h = checkpoint(net, x_tb[t], h, use_reentrant=False)
+        else:
+            q, h = net(x_tb[t], h)
         qs.append(q)
     return torch.stack(qs).view(T, b, N, -1).transpose(0, 1)
 
 
-class VDNLearner:
-    """The eval net (trained in place; the rollout may share it), its
-    target copy, the optimizer state and the update count.
+MIXER = "mixer."   # the prefix of the mixer's names in a flat dict
 
-    :meth:`state` and :meth:`load_state` carry all four as the tree that
-    the JAX package's ``LearnerState`` is: ``params`` and
-    ``target_params`` (``{"agent": {name: tensor}}``), ``opt_state`` and
+
+def _nest(flat: dict) -> dict:
+    """A flat dict of :attr:`QLearner.all_params`' names -> ``{"agent":
+    {name: tensor}, "mixer": {name: tensor}}``."""
+    out: dict = {}
+    for name, v in flat.items():
+        part = "mixer" if name.startswith(MIXER) else "agent"
+        out.setdefault(part, {})[name.removeprefix(MIXER)] = v
+    return out
+
+
+def _flat(tree: dict) -> dict:
+    return {(MIXER if part == "mixer" else "") + name: v
+            for part, d in tree.items() for name, v in d.items()}
+
+
+class QLearner:
+    """The eval nets (the agent, trained in place, which the rollout may
+    share, and under QMIX the mixer), their target copies, the optimizer
+    state and the update count (JAX ``make_learner``).
+
+    :meth:`state` and :meth:`load_state` carry them as the tree that the
+    JAX package's ``LearnerState`` is: ``params`` and ``target_params``
+    (``{"agent": {name: tensor}, "mixer": {...}}``, the mixer only under
+    QMIX), ``opt_state`` (its moments in the same layout) and
     ``train_step``."""
 
-    def __init__(self, args, net: nn.Module):
-        if args.alg != "vdn":
-            raise NotImplementedError(
-                f"--alg {args.alg}: QMIX is ROADMAP.md Queue 1 item 7")
+    def __init__(self, args, net: nn.Module,
+                 mixer: Optional[nn.Module] = None):
+        if args.alg not in ("vdn", "qmix"):
+            raise ValueError(f"unknown --alg {args.alg!r}: vdn or qmix")
+        if (args.alg == "qmix") != (mixer is not None):
+            raise ValueError("--alg qmix takes a mixer, and vdn none")
         disable_tf32()
         self.args = args
         self.net = net
+        self.mixer = mixer
         self.target_net = copy.deepcopy(net).requires_grad_(False)
-        self.params = dict(net.named_parameters())
+        self.target_mixer = (None if mixer is None else
+                             copy.deepcopy(mixer).requires_grad_(False))
+        self.params = dict(net.named_parameters())   # the agent's
+        # the agent's and the mixer's, the mixer's names prefixed
+        self.all_params = dict(self.params)
+        if mixer is not None:
+            self.all_params.update(
+                {MIXER + k: v for k, v in mixer.named_parameters()})
         self.opt = make_optimizer(args)
-        self.opt_state = self.opt.init(self.params)
+        self.opt_state = self.opt.init(self.all_params)
         self.train_step = 0
+
+    def _pairs(self):
+        """(eval, target) module pairs: the agent, then the mixer."""
+        yield self.net, self.target_net
+        if self.mixer is not None:
+            yield self.mixer, self.target_mixer
 
     # ------------------------------------------------------------------
     def build_inputs(self, batch: dict, u_onehot: torch.Tensor):
@@ -204,6 +253,7 @@ class VDNLearner:
         """The masked TD loss of a minibatch in the ``(b, T, N, .)`` views
         (JAX qlearn.py:234-273)."""
         H, A = self.args.rnn_hidden_dim, self.args.n_actions
+        remat = bool(self.args.remat)
         u = batch["u"].long()                          # (b, T, N, 1)
         r = batch["r"].float()                         # (b, T, 1)
         terminated = batch["terminated"].float()
@@ -213,34 +263,43 @@ class VDNLearner:
         u_onehot = F.one_hot(u[..., 0], A).float() * mask[..., None]
         avail_next = mask[..., None].expand(u_onehot.shape)
         eval_in, tgt_in = self.build_inputs(batch, u_onehot)
-        q_evals = unroll(self.net, eval_in, H)
+        q_evals = unroll(self.net, eval_in, H, remat)
         with torch.no_grad():
             q_targets = unroll(self.target_net, tgt_in, H)
         q_e = q_evals.gather(3, u).squeeze(3)          # (b, T, N)
         q_t = torch.where(avail_next == 0.0, MASKED_Q, q_targets).amax(3)
-        q_tot_e, q_tot_t = vdn_mix(q_e), vdn_mix(q_t)
+        if self.mixer is None:
+            q_tot_e, q_tot_t = vdn_mix(q_e), vdn_mix(q_t)
+        else:
+            s_ext = batch["s_ext"].float()
+            q_tot_e = self.mixer(q_e, s_ext[:, :-1])
+            with torch.no_grad():
+                q_tot_t = self.target_mixer(q_t, s_ext[:, 1:])
         targets = r + self.args.gamma * q_tot_t * (1.0 - terminated)
         td = (targets.detach() - q_tot_e) * mask
         return torch.sum(td ** 2) / torch.sum(mask)
 
     def loss_and_grads(self, batch: dict):
+        """The loss and its gradients, keyed as :attr:`all_params` (the
+        agent's names, and the mixer's with the prefix ``mixer.``)."""
         loss = self.loss(batch)
-        grads = torch.autograd.grad(loss, list(self.params.values()))
-        return loss, dict(zip(self.params, grads))
+        grads = torch.autograd.grad(loss, list(self.all_params.values()))
+        return loss, dict(zip(self.all_params, grads))
 
     def update(self, batch: dict) -> torch.Tensor:
-        """One step on ``batch``; the target net takes the eval net's
+        """One step on ``batch``; the target nets take the eval nets'
         parameters when the new update count is a multiple of
         ``target_update_cycle`` (JAX qlearn.py:275-294).  Returns the loss
         before the step."""
         loss, grads = self.loss_and_grads(batch)
-        self.opt_state = self.opt.step(self.params, grads, self.opt_state)
+        self.opt_state = self.opt.step(self.all_params, grads,
+                                       self.opt_state)
         self.train_step += 1
         if self.train_step % self.args.target_update_cycle == 0:
             with torch.no_grad():
-                for t, p in zip(self.target_net.parameters(),
-                                self.net.parameters()):
-                    t.copy_(p)
+                for live, target in self._pairs():
+                    for t, p in zip(target.parameters(), live.parameters()):
+                        t.copy_(p)
         return loss.detach()
 
     def learn_many(self, replay: ReplayState, n_updates: int,
@@ -257,15 +316,22 @@ class VDNLearner:
         return torch.stack(losses).mean()
 
     # ------------------------------------------------------------------
+    def _named(self, target: bool = False) -> dict:
+        """``{"agent": params, "mixer": params}`` of the eval or the target
+        nets (the mixer only under QMIX)."""
+        return {part: dict(nets[target].named_parameters())
+                for part, nets in zip(("agent", "mixer"), self._pairs())}
+
     def state(self) -> dict:
         """The learner's state as a tree of tensors (copies)."""
-        copy_of = lambda d: {k: v.detach().clone() for k, v in d.items()}
-        opt = {k: ({"agent": copy_of(v)} if isinstance(v, dict)
-                   else v.clone()) for k, v in self.opt_state.items()}
+        copy_of = lambda tree: {part: {k: v.detach().clone()
+                                       for k, v in d.items()}
+                                for part, d in tree.items()}
+        opt = {k: (copy_of(_nest(v)) if isinstance(v, dict) else v.clone())
+               for k, v in self.opt_state.items()}
         return {
-            "params": {"agent": copy_of(self.params)},
-            "target_params": {
-                "agent": copy_of(dict(self.target_net.named_parameters()))},
+            "params": copy_of(self._named()),
+            "target_params": copy_of(self._named(target=True)),
             "opt_state": opt,
             "train_step": torch.tensor(self.train_step, dtype=torch.int32),
         }
@@ -274,13 +340,13 @@ class VDNLearner:
     def load_state(self, tree: dict):
         """Take a tree laid out as :meth:`state`'s (checked by name first,
         e.g. by ``checkpoint.restructure``)."""
-        for k, p in self.params.items():
-            p.copy_(tree["params"]["agent"][k])
-        for k, p in self.target_net.named_parameters():
-            p.copy_(tree["target_params"]["agent"][k])
+        for target, key in ((False, "params"), (True, "target_params")):
+            for part, params in self._named(target).items():
+                for k, p in params.items():
+                    p.copy_(tree[key][part][k])
         device = next(iter(self.params.values())).device
         self.opt_state = {
-            k: ({n: t.to(device).clone() for n, t in v["agent"].items()}
+            k: ({n: t.to(device).clone() for n, t in _flat(v).items()}
                 if isinstance(v, dict) else v.cpu().to(torch.int32))
             for k, v in tree["opt_state"].items()}
         self.train_step = int(tree["train_step"])

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from marl_dmfb_tpu_torch.models.convert import (from_flax_learner_state,
-                                                from_flax_params)
+                                                from_flax_tree)
 
 
 def model_state_path(args, tag, write: bool = False) -> str:
@@ -107,22 +107,21 @@ def read_export(path: str) -> dict:
 
 def from_export(tree: dict) -> dict:
     """A tree of :func:`read_export` as the port's checkpoint tree: the
-    agent weights through ``from_flax_params``, a full learner state
-    through ``from_flax_learner_state``.  A deploy export holds one set of
-    weights, under ``ema`` or ``learner/params``."""
+    weights (the agent's, and a QMIX mixer's) through ``from_flax_tree``,
+    a full learner state through ``from_flax_learner_state``.  A deploy
+    export holds one set of weights, under ``ema`` or ``learner/params``."""
     learner = tree["learner"]
     out = {"epsilon": torch.tensor(np.float32(tree["epsilon"])),
            "net_config": dict(tree["net_config"])}
-    agent = lambda p: {"agent": from_flax_params(p["agent"])}
     if "target_params" in learner:   # a full export (SGD has no opt_state)
         out["learner"] = from_flax_learner_state({"opt_state": {},
                                                   **learner})
     elif "params" in learner:
-        out["learner"] = {"params": agent(learner["params"]),
+        out["learner"] = {"params": from_flax_tree(learner["params"]),
                           "train_step": torch.tensor(
                               int(learner["train_step"]), dtype=torch.int32)}
     if "ema" in tree:
-        out["ema"] = agent(tree["ema"])
+        out["ema"] = from_flax_tree(tree["ema"])
     return out
 
 

@@ -1,10 +1,11 @@
 """Configuration for the PyTorch port: CLI args + per-droplet-count
 hyperparameters.
 
-Ported from ``marl_dmfb_tpu/config.py``.  The DMFB hyperparameter YAMLs
-(``marl_dmfb_tpu/data/dmfb/{2,3,4,5,10}d.yaml``) are carried as the dict
-literal :data:`DMFB_HPARAMS`, so nothing parses YAML at run time; a CPU
-test holds the dict equal to the YAML files.
+Ported from ``marl_dmfb_tpu/config.py``.  The hyperparameter YAMLs
+(``marl_dmfb_tpu/data/dmfb/{2,3,4,5,10}d.yaml`` and
+``marl_dmfb_tpu/data/meda/{2,3,4,10}d.yaml``) are carried as the dict
+literals :data:`DMFB_HPARAMS` and :data:`MEDA_HPARAMS`, so nothing parses
+YAML at run time; a CPU test holds the dicts equal to the YAML files.
 
 Deviations from the JAX CLI:
 
@@ -15,7 +16,7 @@ Deviations from the JAX CLI:
   JAX checkpoint exported to ``.npz`` by ``tools/export_flax_npz.py``
   (``checkpoint.py``).  ``--show``/``--show_save`` raise
   ``NotImplementedError``.
-* the TPU and later-slice flags are parsed and raise
+* the TPU flags that the port does not implement yet are parsed and raise
   ``NotImplementedError`` when set away from their default (see
   :func:`refuse_unported`); ``--scan_unroll`` is accepted and ignored.
 """
@@ -66,6 +67,38 @@ DMFB_HPARAMS = {
     ),
 }
 
+MEDA_HPARAMS = {
+    2: (
+        dict(rnn_hidden_dim=128, qmix_hidden_dim=32, two_hyper_layers=True,
+             hyper_hidden_dim=32, lr=5.0e-4),
+        dict(n_episodes=2, epsilon=1, min_epsilon=0.05, anneal_steps=100000,
+             epsilon_anneal_scale="step", train_time=1, batch_size=64,
+             buffer_size=10000, target_update_cycle=200, grad_norm_clip=10),
+    ),
+    3: (
+        dict(rnn_hidden_dim=128, qmix_hidden_dim=32, two_hyper_layers=True,
+             hyper_hidden_dim=32, lr=5.0e-4),
+        dict(n_episodes=2, epsilon=1, min_epsilon=0.05, anneal_steps=300000,
+             epsilon_anneal_scale="step", train_time=2, batch_size=64,
+             buffer_size=10000, target_update_cycle=200, grad_norm_clip=10),
+    ),
+    4: (
+        dict(rnn_hidden_dim=128, qmix_hidden_dim=32, two_hyper_layers=True,
+             hyper_hidden_dim=32, lr=5.0e-4),
+        dict(n_episodes=10, epsilon=1, min_epsilon=0.05, anneal_steps=300000,
+             epsilon_anneal_scale="step", train_time=2, batch_size=64,
+             buffer_size=10000, target_update_cycle=200, grad_norm_clip=10),
+    ),
+    10: (
+        dict(rnn_hidden_dim=128, qmix_hidden_dim=32, two_hyper_layers=True,
+             hyper_hidden_dim=32, lr=5.0e-4),
+        dict(n_episodes=2, epsilon=1, min_epsilon=0.01, anneal_steps=300000,
+             epsilon_anneal_scale="step", train_time=2, batch_size=128,
+             buffer_size=10000, target_update_cycle=200, grad_norm_clip=8),
+    ),
+}
+HPARAMS = {"dmfb": DMFB_HPARAMS, "meda": MEDA_HPARAMS}
+
 
 @dataclasses.dataclass
 class Args:
@@ -106,14 +139,14 @@ class Args:
     evaluate_epoch: int = 20
     noise_eps: float = 0.0        # evaluation-time epsilon (eva_degrade)
 
-    # --- hyperparameters (DMFB_HPARAMS network section) ---
+    # --- hyperparameters (HPARAMS network section) ---
     rnn_hidden_dim: int = 128
     qmix_hidden_dim: int = 32
     two_hyper_layers: bool = True
     hyper_hidden_dim: int = 32
     lr: float = 5e-4
 
-    # --- hyperparameters (DMFB_HPARAMS training section) ---
+    # --- hyperparameters (HPARAMS training section) ---
     n_episodes: int = 2
     epsilon: float = 1.0
     min_epsilon: float = 0.05
@@ -150,17 +183,27 @@ class Args:
     device: str = "cuda"
 
     def apply_env_defaults(self):
-        """set_default (JAX config.py:111-137, DMFB part)."""
-        if self.name != "dmfb":
-            raise NotImplementedError(
-                f"env {self.name!r} is not ported yet; see ROADMAP.md")
-        if self.fov is None:
-            self.fov = 9
-        if self.width is None:
-            self.width = 10
-            self.length = 10
-        elif self.length is None:
-            self.length = self.width
+        """set_default (JAX config.py:111-137): DMFB 10x10, fov 9; MEDA
+        v0.2, fov 19, 30x60 (80x80 at 10 droplets)."""
+        if self.name == "dmfb":
+            if self.fov is None:
+                self.fov = 9
+            if self.width is None:
+                self.width = self.length = 10
+            elif self.length is None:
+                self.length = self.width
+        elif self.name == "meda":
+            if self.version is None:
+                self.version = "0.2"
+            if self.fov is None:
+                self.fov = 19
+            if self.width is None:
+                self.width, self.length = ((80, 80) if self.drop_num == 10
+                                           else (30, 60))
+            elif self.length is None:
+                self.length = self.width
+        else:
+            raise ValueError(f"unknown env name: {self.name!r}")
         if not self.data_dir:
             self.data_dir = f"data-{self.name}"
         return self
@@ -168,11 +211,12 @@ class Args:
     def load_hparams(self, drop_num: Optional[int] = None):
         """Merge the TrainParas hyperparameters (JAX ``load_yaml``)."""
         d = self.drop_num if drop_num is None else drop_num
-        if d not in DMFB_HPARAMS:
+        table = HPARAMS[self.name]
+        if d not in table:
             raise FileNotFoundError(
-                f"no DMFB hyperparameters for {d} droplets "
-                f"(have {sorted(DMFB_HPARAMS)})")
-        netdata, traindata = DMFB_HPARAMS[d]
+                f"no {self.name.upper()} hyperparameters for {d} droplets "
+                f"(have {sorted(table)})")
+        netdata, traindata = table[d]
         for k, v in {**netdata, **traindata}.items():
             setattr(self, k, v)
         return self
@@ -245,10 +289,6 @@ def refuse_unported(args: Args) -> Args:
     if args.vmap_seeds > 1:
         raise NotImplementedError(
             "--vmap_seeds: ROADMAP.md Queue 1 item 10 (seed farm)")
-    if args.remat:
-        raise NotImplementedError(
-            "--remat: ROADMAP.md Queue 1 item 6 (MEDA, activation "
-            "checkpointing)")
     if args.fused_streams:
         raise NotImplementedError(
             "--fused_streams: ROADMAP.md Queue 4 (learner speed)")
@@ -277,7 +317,9 @@ def get_train_args(argv=None, pri: bool = True) -> Args:
                         "training chips, for a resume identical to an "
                         "uninterrupted run")
     p.add_argument("--remat", default=False, action="store_true",
-                   help="activation checkpointing (not ported yet)")
+                   help="recompute each BPTT step's activations in the "
+                        "backward pass (torch.utils.checkpoint): less "
+                        "memory, the same loss and gradients")
     p.add_argument("--fused_streams", default=False, action="store_true",
                    help="one unroll for both streams (not ported yet)")
     # eager torch has no scan to unroll: parsed for the JAX CLI's sake and
@@ -322,8 +364,9 @@ def get_evaluate_args(argv=None) -> Args:
     args = Args(**vars(p.parse_args(argv)))
     args.apply_env_defaults()
     # quirk parity: evaluation always loads the 4-droplet hyperparameters
-    # (JAX config.py:294-296), so the CRNN has 24 conv channels; a loaded
-    # checkpoint's net_config overrides them
+    # (JAX config.py:294-296), for MEDA too, so the DMFB CRNN has 24 conv
+    # channels and the MEDA one 32; a loaded checkpoint's net_config
+    # overrides them
     args.load_hparams(drop_num=4)
     return refuse_unported(args)
 
@@ -332,15 +375,11 @@ def make_env_from_args(args: Args):
     """Construct the env from parsed args (JAX config.py:300-317)."""
     from marl_dmfb_tpu_torch.envs import make_env
 
-    return make_env(
-        args.name,
-        version=args.version,
-        width=args.width,
-        length=args.length,
-        n_droplets=args.drop_num,
-        n_blocks=args.block_num,
-        fov=args.fov,
-        stall=args.stall,
-        b_degrade=bool(args.b_degrade),
-        per_degrade=args.per_degrade,
-    )
+    common = dict(width=args.width, length=args.length,
+                  n_droplets=args.drop_num, fov=args.fov, stall=args.stall,
+                  b_degrade=bool(args.b_degrade),
+                  per_degrade=args.per_degrade)
+    if args.name == "dmfb":
+        return make_env("dmfb", version=args.version,
+                        n_blocks=args.block_num, **common)
+    return make_env("meda", version=args.version, **common)

@@ -555,3 +555,24 @@ def observe_v0(params: DMFBParams, state: DMFBState) -> torch.Tensor:
     ], dim=-1)
     pixel = torch.stack([layer0, layer1, layer2], dim=2).reshape(batch, n, -1)
     return torch.cat([pixel, direction], dim=-1).to(torch.int8)
+
+
+def global_state(params: DMFBParams, state: DMFBState) -> torch.Tensor:
+    """(B, 3*W*L) int8: the board of droplet ids, the board of goal ids
+    (each cell the sum of the ids on it, as the JAX package's one-hot
+    contraction) and the blocks — the QMIX mixer's state (JAX
+    dmfb.py:715-734, which gives the same values in float32)."""
+    ids = torch.arange(1, params.n_droplets + 1, dtype=torch.int32,
+                       device=state.pos.device)
+    xs = torch.arange(params.width, device=state.pos.device)
+    ys = torch.arange(params.length, device=state.pos.device)
+
+    def id_board(cells):
+        on_x = cells[..., 0, None] == xs                    # (B, N, W)
+        on_y = cells[..., 1, None] == ys                    # (B, N, L)
+        hit = on_x[..., :, None] & on_y[..., None, :]
+        return (hit * ids[:, None, None]).sum(dim=1)
+
+    boards = torch.stack([id_board(state.pos), id_board(state.goal),
+                          state.block_mask.int()], dim=1)
+    return boards.reshape(boards.shape[0], -1).to(torch.int8)

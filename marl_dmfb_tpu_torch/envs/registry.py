@@ -3,9 +3,12 @@
 
 ``make_env`` returns an :class:`Env`: functions closed over the static
 params, each taking a batch of B chips.  ``step_core`` is the production env
-step: on CUDA tensors it launches the hand kernel (for the v0.1 observation,
-its no-observation mode, then the plain v0.1 ``observe``), on CPU tensors it
-runs the kernel's plain PyTorch version (``ops/dmfb_step.py``).
+step.  For DMFB, on CUDA tensors it launches the hand kernel (for the v0.1
+observation, its no-observation mode, then the plain v0.1 ``observe``), on
+CPU tensors it runs the kernel's plain PyTorch version
+(``ops/dmfb_step.py``).  For MEDA, which the JAX package ran as plain XLA
+code with no Pallas kernel, it is the plain PyTorch step of
+``envs/meda.py`` on either device.
 """
 
 from __future__ import annotations
@@ -16,18 +19,20 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from marl_dmfb_tpu_torch.envs import dmfb as _dmfb
+from marl_dmfb_tpu_torch.envs import meda as _meda
 from marl_dmfb_tpu_torch.ops import dmfb_step as _dmfb_step
 
 
 class Env(NamedTuple):
     name: str
     params: Any
-    init: Callable       # (batch, generator, device) -> state
-    reset: Callable      # (state, generator) -> state
-    restart: Callable    # (state) -> state
-    step: Callable       # (state, actions, generator) -> (state, StepOutput)
-    step_core: Callable  # (state, actions, uniforms) -> (state, StepOutput)
-    observe: Callable    # (state) -> (B, N, obs_dim)
+    init: Callable          # (batch, generator, device) -> state
+    reset: Callable         # (state, generator) -> state
+    restart: Callable       # (state) -> state
+    step: Callable          # (state, actions, generator) -> (state, out)
+    step_core: Callable     # (state, actions, uniforms) -> (state, out)
+    observe: Callable       # (state) -> (B, N, obs_dim)
+    global_state: Callable  # (state) -> (B, state_dim) int8
 
     @property
     def n_agents(self) -> int:
@@ -35,7 +40,7 @@ class Env(NamedTuple):
 
     @property
     def n_actions(self) -> int:
-        return _dmfb.N_ACTIONS
+        return _dmfb.N_ACTIONS if self.name == "dmfb" else _meda.N_ACTIONS
 
     @property
     def episode_limit(self) -> int:
@@ -52,30 +57,35 @@ def _step(params, state, actions, generator):
     return _dmfb_step.step_batch(params, state, actions, uniforms)
 
 
+_FUNCTIONS = ("init", "reset", "restart", "step", "step_core", "observe",
+              "global_state")
+
+
+def _bind(name: str, module, params, **overrides) -> Env:
+    """An :class:`Env` of ``module``'s functions closed over ``params``;
+    ``overrides`` replace some of them."""
+    fns = {f: overrides.get(f, getattr(module, f)) for f in _FUNCTIONS}
+    return Env(name=name, params=params,
+               **{f: functools.partial(fn, params) for f, fn in fns.items()})
+
+
 def make_env(name: str = "dmfb", version: str | None = None,
              **kwargs) -> Env:
     """Build an environment bundle.  ``version`` follows the CLI: for DMFB,
     ``'0.1'`` selects the 4-layer float32 observation, anything else the v0
-    int8 one; ``obs_version`` ("v0", "v0.1") names it directly.  MEDA is
-    not ported yet."""
+    int8 one; for MEDA, ``'0.1'`` and ``'0.2'`` select those observations
+    and anything else v0 (the MEDA CLI sets ``'0.2'``).  ``obs_version``
+    ("v0", "v0.1", "v0.2") names it directly."""
     obs_version = kwargs.pop("obs_version", None)
     if obs_version is None:
         obs_version = {"0.1": "v0.1", "0.2": "v0.2"}.get(version or "", "v0")
     if name == "meda":
-        raise NotImplementedError(
-            "the MEDA env is not ported yet; see ROADMAP.md")
+        return _bind("meda", _meda,
+                     _meda.MEDAParams(obs_version=obs_version, **kwargs))
     if name != "dmfb":
         raise ValueError(f"unknown env name: {name!r}")
     if obs_version == "v0.2":
         raise ValueError("dmfb has no v0.2 observation")
-    params = _dmfb.DMFBParams(obs_version=obs_version, **kwargs)
-    return Env(
-        name="dmfb",
-        params=params,
-        init=functools.partial(_dmfb.init, params),
-        reset=functools.partial(_dmfb.reset, params),
-        restart=functools.partial(_dmfb.restart, params),
-        step=functools.partial(_step, params),
-        step_core=functools.partial(_dmfb_step.step_batch, params),
-        observe=functools.partial(_dmfb.observe, params),
-    )
+    return _bind("dmfb", _dmfb,
+                 _dmfb.DMFBParams(obs_version=obs_version, **kwargs),
+                 step=_step, step_core=_dmfb_step.step_batch)

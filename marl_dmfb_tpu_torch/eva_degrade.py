@@ -5,13 +5,17 @@
         --chip_size=50 --evaluate_task=20 --load_model_name=0_final \\
         --data_dir=<run dir> [--evaluate_epoch=20] [--noise_eps=0.3] \\
         [--device=cpu]
+    python -m marl_dmfb_tpu_torch.eva_degrade meda --drop_num=4 \\
+        --data_dir=<run dir> [--alg=qmix] [--device=cpu]
 
 The protocol is the JAX package's: ``N_RUNS`` = 5 fully degradable chips
 (``b_degrade`` on, ``per_degrade`` 1.0) run in one lockstep batch, so the
 env-step kernel runs at B = 5.  Per epoch the health and usage boards are
 snapshotted, then ``--evaluate_task`` episodes run one after another on the
 same chips: every reset keeps the wear and applies the health decay, so the
-electrodes degrade across episodes and epochs.  ``--noise_eps`` is a fixed
+electrodes degrade across episodes and epochs.  A DMFB sweep's env step is
+the kernel at B = 5, a MEDA sweep's the plain PyTorch step; the output is
+labelled ``<W>by<L>-<n>d<b>b`` for both (MEDA has no blocks, ``b`` is 0).  ``--noise_eps`` is a fixed
 epsilon (no anneal; greedy only at 0), for the control sweeps with a
 weakened policy.  ``rewards``, ``steps`` and ``success`` ``(5, epochs)`` and
 ``health`` and ``usage`` ``(5, epochs, W, L)`` are saved as ``.npy`` under

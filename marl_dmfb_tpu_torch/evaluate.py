@@ -5,7 +5,13 @@ Usage::
     python -m marl_dmfb_tpu_torch.evaluate dmfb --drop_num=4 --fov=9 \\
         --chip_size=50 --load_model_name=0_final --data_dir=<run dir> \\
         [--evaluate_task=100] [--boards=10,20,50] [--compute_dtype=bf16] \\
-        [--version=0.1] [--device=cpu]
+        [--version=0.1] [--alg=qmix] [--device=cpu]
+    python -m marl_dmfb_tpu_torch.evaluate meda --drop_num=4 \\
+        --data_dir=<run dir> [--alg=qmix] [--version=0.1] [--device=cpu]
+
+MEDA defaults to the v0.2 observation, fov 19 and a 30x60 board (80x80 at
+10 droplets).  A QMIX checkpoint trained on another board evaluates with
+its agent and without its mixer, which greedy evaluation does not call.
 
 Runs on the GPU unless ``--device cpu`` is given, and raises when CUDA is
 asked for and absent.  As in the JAX package, evaluation always loads a
@@ -32,7 +38,7 @@ def evaluate_one(args) -> dict:
     dict."""
     if args.show or args.show_save:
         raise NotImplementedError(
-            "--show/--show_save rendering is not ported yet; see ROADMAP.md")
+            "--show/--show_save: ROADMAP.md Queue 1 item 9 (rendering)")
     env = make_env_from_args(args)
     tag = load_model_tag(args) if args.load_model else None
     if tag is not None:

@@ -1,12 +1,14 @@
-"""Carry the JAX package's agent weights across to the port.
+"""Carry the JAX package's weights across to the port.
 
 :func:`from_flax_params` takes the Flax parameter tree of an agent net as
 plain numpy arrays (as ``marl_dmfb_tpu.checkpoint.restore`` returns them, or
-``jax.tree.map(np.asarray, params)``), so the port never imports flax.
-Layouts: a conv kernel is HWIO in Flax and OIHW in torch; a dense kernel is
-(in, out) in Flax and (out, in) in torch; the GRU's ``wi/wh/bi/bh`` are
-torch's ``weight_ih/weight_hh/bias_ih/bias_hh`` with the kernels transposed
-(the gate order r, z, n is the same).
+``jax.tree.map(np.asarray, params)``), so the port never imports flax;
+:func:`from_flax_mixer` takes a QMIX mixer's, and :func:`from_flax_tree`
+a ``{"agent": ..., "mixer": ...}`` params tree.  Layouts: a conv kernel is
+HWIO in Flax and OIHW in torch; a dense kernel is (in, out) in Flax and
+(out, in) in torch; the GRU's ``wi/wh/bi/bh`` are torch's
+``weight_ih/weight_hh/bias_ih/bias_hh`` with the kernels transposed (the
+gate order r, z, n is the same); the mixer's layers keep their names.
 """
 
 from __future__ import annotations
@@ -55,6 +57,24 @@ def from_flax_params(tree: Mapping) -> dict:
     return sd
 
 
+def from_flax_mixer(tree: Mapping) -> dict:
+    """Flax QMIX mixer params (dense layers by name, ``{"hyper_w1_1":
+    {"w", "b"}, ...}``) -> a torch ``state_dict`` for :class:`QMixer`."""
+    sd = {}
+    for name in sorted(tree):
+        sd.update(_dense(name, tree[name]))
+    return sd
+
+
+def from_flax_tree(tree: Mapping) -> dict:
+    """A params tree (``{"agent": ..., "mixer": ...}``, the mixer only under
+    QMIX) -> the same tree of torch ``state_dict``s."""
+    out = {"agent": from_flax_params(tree["agent"])}
+    if tree.get("mixer") is not None:
+        out["mixer"] = from_flax_mixer(tree["mixer"])
+    return out
+
+
 def _optax_states(node):
     """The optax states inside an optax ``opt_state``, in order: the
     NamedTuples themselves, or the name-keyed dicts that a restored Orbax
@@ -77,28 +97,28 @@ def _optax_states(node):
 def from_flax_learner_state(tree: Mapping) -> dict:
     """A JAX ``LearnerState`` (``params``, ``target_params``, ``opt_state``,
     ``train_step``; a NamedTuple or its ``_asdict()``, leaves as numpy
-    arrays) -> the tree that ``VDNLearner.load_state`` takes.
+    arrays) -> the tree that ``QLearner.load_state`` takes.
 
     Adam's ``count``/``mu``/``nu`` become ``count``/``mu``/``nu``,
     rmsprop's ``nu`` becomes ``nu``, and a learning-rate schedule's
     ``count`` becomes ``schedule_count``; the moments take the parameters'
-    layouts."""
+    layouts, a QMIX mixer's included."""
     if hasattr(tree, "_asdict"):
         tree = tree._asdict()
     count = lambda x: torch.tensor(int(np.asarray(x)), dtype=torch.int32)
-    agent = lambda p: {"agent": from_flax_params(p["agent"])}
     opt = {}
     for fields in _optax_states(tree["opt_state"]):
         if "mu" in fields:
-            opt.update(count=count(fields["count"]), mu=agent(fields["mu"]),
-                       nu=agent(fields["nu"]))
+            opt.update(count=count(fields["count"]),
+                       mu=from_flax_tree(fields["mu"]),
+                       nu=from_flax_tree(fields["nu"]))
         elif "nu" in fields:
-            opt["nu"] = agent(fields["nu"])
+            opt["nu"] = from_flax_tree(fields["nu"])
         elif "count" in fields:
             opt["schedule_count"] = count(fields["count"])
     return {
-        "params": agent(tree["params"]),
-        "target_params": agent(tree["target_params"]),
+        "params": from_flax_tree(tree["params"]),
+        "target_params": from_flax_tree(tree["target_params"]),
         "opt_state": opt,
         "train_step": count(tree["train_step"]),
     }

@@ -1,5 +1,5 @@
-"""Agent networks and the VDN mixer in PyTorch (JAX
-``models/networks.py:27-278``).
+"""Agent networks and the VDN and QMIX mixers in PyTorch (JAX
+``models/networks.py:27-315``).
 
 The JAX package wrote torch's layers again in Flax (``TorchGRUCell``,
 ``TorchDense``, ``TorchConv``) to keep the reference's gate math and init;
@@ -224,3 +224,63 @@ def build_agent_net(args) -> nn.Module:
 def vdn_mix(agent_qs: torch.Tensor) -> torch.Tensor:
     """Additive joint Q: sum over the agent axis (dim 2), kept."""
     return agent_qs.sum(dim=2, keepdim=True)
+
+
+class QMixer(nn.Module):
+    """The state-conditioned monotonic mixer (JAX ``QMixer``,
+    networks.py:281-315; reference ``QMixNet``): hypernetworks of the
+    global state give the weights of a one-hidden-layer mix of the agents'
+    Qs, made non-negative by ``abs``, with ELU on the hidden layer.  With
+    ``two_hyper_layers`` the weight hypernetworks have a ReLU hidden layer
+    of ``hyper_hidden``.  The layers keep the JAX package's names and are
+    float32 whatever the agent's ``compute_dtype``, as there."""
+
+    def __init__(self, n_agents: int, state_dim: int, qmix_hidden: int = 32,
+                 hyper_hidden: int = 32, two_hyper_layers: bool = True):
+        super().__init__()
+        self.n_agents, self.state_dim = n_agents, state_dim
+        self.qmix_hidden = qmix_hidden
+        self.two_hyper_layers = two_hyper_layers
+        H = qmix_hidden
+        if two_hyper_layers:
+            self.hyper_w1_1 = TorchDense(state_dim, hyper_hidden)
+            self.hyper_w1_2 = TorchDense(hyper_hidden, n_agents * H)
+            self.hyper_w2_1 = TorchDense(state_dim, hyper_hidden)
+            self.hyper_w2_2 = TorchDense(hyper_hidden, H)
+        else:
+            self.hyper_w1 = TorchDense(state_dim, n_agents * H)
+            self.hyper_w2 = TorchDense(state_dim, H)
+        self.hyper_b1 = TorchDense(state_dim, H)
+        self.hyper_b2_1 = TorchDense(state_dim, H)
+        self.hyper_b2_2 = TorchDense(H, 1)
+
+    def forward(self, agent_qs: torch.Tensor,
+                states: torch.Tensor) -> torch.Tensor:
+        """``agent_qs`` (b, T, N), ``states`` (b, T, state_dim) float32 ->
+        the joint Q (b, T, 1)."""
+        b, T, n = agent_qs.shape
+        q = agent_qs.reshape(-1, 1, n)
+        s = states.reshape(-1, self.state_dim)
+        if self.two_hyper_layers:
+            w1 = self.hyper_w1_2(F.relu(self.hyper_w1_1(s)))
+            w2 = self.hyper_w2_2(F.relu(self.hyper_w2_1(s)))
+        else:
+            w1, w2 = self.hyper_w1(s), self.hyper_w2(s)
+        b1 = self.hyper_b1(s)
+        b2 = self.hyper_b2_2(F.relu(self.hyper_b2_1(s)))
+        w1 = w1.abs().view(-1, n, self.qmix_hidden)
+        w2 = w2.abs().view(-1, self.qmix_hidden, 1)
+        hidden = F.elu(torch.bmm(q, w1) + b1[:, None, :])
+        q_total = torch.bmm(hidden, w2) + b2[:, None, :]
+        return q_total.view(b, T, 1)
+
+
+def build_mixer(args) -> Optional[QMixer]:
+    """The QMIX mixer for ``--alg qmix`` (JAX qlearn.py:118-128), else None
+    (VDN sums the agents' Qs, :func:`vdn_mix`)."""
+    if args.alg != "qmix":
+        return None
+    return QMixer(n_agents=args.n_agents, state_dim=args.state_shape,
+                  qmix_hidden=args.qmix_hidden_dim,
+                  hyper_hidden=args.hyper_hidden_dim,
+                  two_hyper_layers=args.two_hyper_layers)

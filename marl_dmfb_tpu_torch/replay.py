@@ -3,8 +3,10 @@
 The ring holds whole episodes in the JAX package's merged layout: ``o_ext``
 ``(S, T+1, N*obs_dim)`` in the env's observation dtype, int8 for v0 and
 float32 for v0.1 (``o = o_ext[:, :T]``, ``o_next = o_ext[:, 1:]``),
-``u`` ``(S, T, N)`` int8, and ``r``, ``padded`` and ``terminated``
-``(S, T)``.  :func:`store` writes a rollout's B episodes in
+``u`` ``(S, T, N)`` int8, ``r``, ``padded`` and ``terminated``
+``(S, T)``, and for QMIX the global states ``s_ext`` ``(S, T+1,
+state_dim)`` int8 (the boards hold small ids; ``s = s_ext[:, :T]``,
+``s_next = s_ext[:, 1:]``).  :func:`store` writes a rollout's B episodes in
 place at a modulo cursor (a 10x10-4d ring of 5000 episodes is 201 MB, so
 there is no functional copy), and :func:`sample` draws a uniform minibatch
 with replacement and hands it over in the ``(b, T, N, .)`` views the
@@ -25,9 +27,10 @@ class ReplayState(NamedTuple):
 
 
 def init_replay(capacity: int, episode_limit: int, n_agents: int,
-                obs_dim: int, obs_dtype=torch.int8,
-                device="cpu") -> ReplayState:
-    """An empty ring of ``capacity`` episodes."""
+                obs_dim: int, obs_dtype=torch.int8, device="cpu",
+                state_dim: Optional[int] = None) -> ReplayState:
+    """An empty ring of ``capacity`` episodes; with ``state_dim``, also
+    their global states (JAX replay.py:58-107)."""
     S, T, N = capacity, episode_limit, n_agents
     kw = dict(device=device)
     data = {
@@ -37,6 +40,9 @@ def init_replay(capacity: int, episode_limit: int, n_agents: int,
         "padded": torch.zeros((S, T), dtype=torch.bool, **kw),
         "terminated": torch.zeros((S, T), dtype=torch.bool, **kw),
     }
+    if state_dim is not None:
+        data["s_ext"] = torch.zeros((S, T + 1, state_dim), dtype=torch.int8,
+                                    **kw)
     return ReplayState(data=data, cursor=0, size=0)
 
 
@@ -46,6 +52,8 @@ def _flatten_episodes(episodes: dict) -> dict:
     for k, v in episodes.items():
         if k == "o_ext":
             out[k] = v.reshape(v.shape[0], v.shape[1], -1)
+        elif k == "s_ext":   # (B, T+1, state_dim) already
+            out[k] = v
         else:   # u (B, T, N, 1); r, padded, terminated (B, T, 1)
             out[k] = v[..., 0]
     return out
@@ -57,13 +65,16 @@ def logical_views(data: dict) -> dict:
     u = data["u"]
     N = u.shape[-1]
     o = data["o_ext"]
-    return {
+    views = {
         "o_ext": o.view(*o.shape[:-1], N, o.shape[-1] // N),
         "u": u[..., None],
         "r": data["r"][..., None],
         "padded": data["padded"][..., None],
         "terminated": data["terminated"][..., None],
     }
+    if "s_ext" in data:
+        views["s_ext"] = data["s_ext"]
+    return views
 
 
 def store(replay: ReplayState, episodes: dict) -> ReplayState:

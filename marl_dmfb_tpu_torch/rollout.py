@@ -11,7 +11,9 @@ are the JAX package's:
 * epsilon anneals by ``anneal_per_step * live_frac`` per step, so ended
   episodes stop consuming schedule, and the final value is returned;
 * failed episodes count as ``episode_limit`` steps;
-* ``o_ext`` holds T+1 observations (o_0 .. o_T).
+* ``o_ext`` holds T+1 observations (o_0 .. o_T), and with ``with_state``
+  (QMIX) ``s_ext`` the T+1 global states, int8, each written as its step
+  runs (a MEDA 30x60 state is 3600 values a chip).
 """
 
 from __future__ import annotations
@@ -63,10 +65,9 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
     update its parameters in place between rollouts.  Its input ends with
     the last action's one-hot when ``last_action`` is on.  Randomness comes
     from ``generator`` (on the states' device) unless ``noise`` gives it,
-    which lets tests replay the JAX package's draws."""
-    if with_state:
-        raise NotImplementedError(
-            "the QMIX global state is not ported yet; see ROADMAP.md")
+    which lets tests replay the JAX package's draws.  ``with_state`` adds
+    the episodes' global states, ``s_ext`` (JAX rollout.py:191-193,
+    239-243)."""
     disable_tf32()
     N, A, T = env.n_agents, env.n_actions, env.episode_limit
 
@@ -96,6 +97,10 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
         h = torch.zeros((B, N, rnn_hidden), **f32)
         live = torch.ones((B,), dtype=torch.bool, device=device)
         trans = {k: [] for k in ("o_next", "u", "r", "padded", "terminated")}
+        if with_state:
+            s0 = env.global_state(states)
+            s_ext = s0.new_empty((B, T + 1, s0.shape[1]))
+            s_ext[:, 0] = s0
         metrics = {k: [] for k in ("reward", "live", "constraints", "success")}
         for t in range(T):
             q, h = net_forward(obs, last, h)
@@ -121,6 +126,9 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
             trans["padded"].append((~live)[:, None])
             trans["terminated"].append(
                 torch.where(live, out.terminated, True)[:, None])
+            if with_state:
+                s_ext[:, t + 1] = torch.where(
+                    live[:, None], env.global_state(new_states), 0)
             metrics["reward"].append(torch.where(live, out.team_reward, 0.0))
             metrics["live"].append(live.int())
             metrics["constraints"].append(torch.where(live, out.constraints, 0))
@@ -137,6 +145,8 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
         episodes = {k: torch.stack(v, dim=1) for k, v in trans.items()}
         episodes["o_ext"] = torch.cat(
             [obs0[:, None], episodes.pop("o_next")], dim=1)
+        if with_state:
+            episodes["s_ext"] = s_ext
         m = {k: torch.stack(v) for k, v in metrics.items()}   # (T, B)
         success = (m["success"].sum(dim=0) > 0).int()
         steps = torch.where(success == 1, m["live"].sum(dim=0), T)

@@ -1,13 +1,15 @@
-"""Train a VDN policy on DMFB (JAX ``train.py``, without the device mesh and
-the seed farm).
+"""Train a VDN or QMIX policy on DMFB or MEDA (JAX ``train.py``, without
+the device mesh and the seed farm).
 
 Usage::
 
     python -m marl_dmfb_tpu_torch.train dmfb --drop_num=4 --fov=9 \\
-        [--n_parallel_envs=64] [--exact_steps=N] [--device=cpu]
+        [--alg=qmix] [--n_parallel_envs=64] [--exact_steps=N] [--device=cpu]
+    python -m marl_dmfb_tpu_torch.train meda --drop_num=4 [--alg=qmix] \\
+        [--remat] [--device=cpu]
 
 Checkpoints land under ``<data_dir>/model`` and the ``.npy`` curves under
-``<data_dir>/TrainResult`` (``data_dir`` defaults to ``data-dmfb``).  Runs
+``<data_dir>/TrainResult`` (``data_dir`` defaults to ``data-<env>``).  Runs
 on the GPU unless ``--device cpu`` is given, and raises when CUDA is asked
 for and absent.  ``--load_model`` resumes from a full-state checkpoint of
 the port (``--load_model_name``, default ``final``).

@@ -6,8 +6,9 @@ train until ``total_env_steps`` env steps, evaluate and checkpoint every
 ``evaluate_cycle`` steps, and keep the metric curves under the same file
 names.  Per cycle:
 
-* one rollout collects B = ``args.rollout_batch`` episodes; on CUDA its
-  env step is the hand kernel ``csrc/dmfb_step.cu``;
+* one rollout collects B = ``args.rollout_batch`` episodes, with their
+  global states under QMIX; on CUDA a DMFB env step is the hand kernel
+  ``csrc/dmfb_step.cu``, a MEDA one the plain PyTorch step;
 * epsilon anneals by B schedule steps per lockstep step ("step"), or by B
   per cycle, clamped ("episode");
 * the episodes go into the replay ring, and the learner takes
@@ -15,11 +16,11 @@ names.  Per cycle:
   reference's updates per collected episode;
 * failed episodes count as ``episode_limit`` env steps.
 
-Seeds: ``args.seed`` seeds a CPU generator for the parameters (so the
-weights are the same on every device) and one on ``args.device`` for the
-evaluation chips, the training chips, the rollouts' draws and the
-learner's minibatches, in that order; a checkpoint holds its state in place
-of the JAX PRNG key.
+Seeds: ``args.seed`` seeds a CPU generator for the parameters, the agent's
+and then a QMIX mixer's (so the weights are the same on every device), and
+one on ``args.device`` for the evaluation chips, the training chips, the
+rollouts' draws and the learner's minibatches, in that order; a checkpoint
+holds its state in place of the JAX PRNG key.
 """
 
 from __future__ import annotations
@@ -33,19 +34,23 @@ import torch
 
 from marl_dmfb_tpu_torch import checkpoint
 from marl_dmfb_tpu_torch import replay as replay_lib
-from marl_dmfb_tpu_torch.algos.qlearn import VDNLearner
+from marl_dmfb_tpu_torch.algos.qlearn import QLearner
 from marl_dmfb_tpu_torch.config import Args
 from marl_dmfb_tpu_torch.envs.registry import Env
-from marl_dmfb_tpu_torch.models.networks import build_agent_net, init_params
+from marl_dmfb_tpu_torch.models.networks import (build_agent_net,
+                                                 build_mixer, init_params)
 from marl_dmfb_tpu_torch.rollout import make_rollout, summarize_eval
 from marl_dmfb_tpu_torch.utils.platform import disable_tf32
 
-NET_CONFIG = ("net", "rnn_hidden_dim", "hyper_hidden_dim", "qmix_hidden_dim")
+NET_CONFIG = ("net", "rnn_hidden_dim", "hyper_hidden_dim", "qmix_hidden_dim",
+              "two_hyper_layers")
 
 
 def restore_net_config(args: Args, tag) -> Args:
     """Take the net hyperparameters from a saved checkpoint, so that a model
-    trained under any hyperparameters evaluates (JAX trainer.py:146-156)."""
+    trained under any hyperparameters evaluates (JAX trainer.py:146-156).
+    A JAX export has no ``two_hyper_layers``; the hyperparameters' value
+    stands, as in the JAX package."""
     tree = checkpoint.load(checkpoint.model_state_path(args, tag))
     for k, v in tree["net_config"].items():
         setattr(args, k, v)
@@ -58,14 +63,26 @@ def _cpu(tree):
     return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
 
 
-def _named(net: torch.nn.Module) -> dict:
-    return {"agent": dict(net.named_parameters())}
+def _named(net: torch.nn.Module, mixer=None) -> dict:
+    tree = {"agent": dict(net.named_parameters())}
+    if mixer is not None:
+        tree["mixer"] = dict(mixer.named_parameters())
+    return tree
+
+
+@torch.no_grad()
+def _copy(dst: dict, src: dict):
+    for part, params in dst.items():
+        for k, p in params.items():
+            p.copy_(src[part][k])
 
 
 class Trainer:
     def __init__(self, env: Env, args: Args, eval_only: bool = False):
-        """``eval_only`` builds the net and the evaluation chips only: no
-        learner, replay ring or training chips."""
+        """``eval_only`` builds the nets and the evaluation chips only: no
+        learner, replay ring or training chips.  Under ``--alg qmix`` the
+        mixer is built in either case, so that a checkpoint's mixer loads
+        where its board is this one's (JAX trainer.py:172)."""
         self.env = env
         self.args = args
         self.eval_only = eval_only
@@ -73,15 +90,21 @@ class Trainer:
         disable_tf32()
         args.update_env_info(env.env_info())
         self.net = build_agent_net(args)
-        init_params(self.net, torch.Generator().manual_seed(args.seed))
-        self.net.to(self.device)
-        self.learner = None if eval_only else VDNLearner(args, self.net)
+        self.mixer = build_mixer(args)
+        g = torch.Generator().manual_seed(args.seed)
+        for module in (self.net, self.mixer):
+            if module is not None:
+                init_params(module, g)
+                module.to(self.device)
+        self.learner = (None if eval_only
+                        else QLearner(args, self.net, self.mixer))
         self.generator = torch.Generator(device=self.device).manual_seed(
             args.seed)
         self.eval_states = env.init(args.evaluate_task, self.generator,
                                     self.device)
         H = args.rnn_hidden_dim
-        self.rollout = make_rollout(env, self.net, H,
+        qmix = self.mixer is not None
+        self.rollout = make_rollout(env, self.net, H, with_state=qmix,
                                     last_action=args.last_action)
         self.B = B = args.rollout_batch
         self.env_states = self.replay = None
@@ -90,7 +113,8 @@ class Trainer:
             self.replay = replay_lib.init_replay(
                 args.buffer_size, args.episode_limit, args.n_agents,
                 args.obs_shape[-1], obs_dtype=env.params.obs_dtype,
-                device=self.device)
+                device=self.device,
+                state_dim=args.state_shape if qmix else None)
 
         self.epsilon = args.epsilon
         self.anneal_per_step = (
@@ -100,11 +124,14 @@ class Trainer:
             1, round(args.train_time * B / args.n_episodes))
 
         # --param_ema: evaluation and checkpoints use a moving average of
-        # the params, updated once a cycle with the per-update decay
-        # compounded over the cycle's updates
-        self.ema_net = self.ema_rollout = None
+        # the params (the agent's and the mixer's), updated once a cycle
+        # with the per-update decay compounded over the cycle's updates
+        self.ema_net = self.ema_mixer = self.ema_rollout = None
         if args.param_ema and not eval_only:
             self.ema_net = copy.deepcopy(self.net).requires_grad_(False)
+            if self.mixer is not None:
+                self.ema_mixer = copy.deepcopy(
+                    self.mixer).requires_grad_(False)
             self.ema_rollout = make_rollout(env, self.ema_net, H,
                                             last_action=args.last_action)
             self.cycle_decay = float(args.param_ema) ** self.updates_per_rollout
@@ -145,7 +172,7 @@ class Trainer:
             "net_config": {k: getattr(a, k) for k in NET_CONFIG},
         }
         if self.ema_net is not None:
-            tree["ema"] = _named(self.ema_net)
+            tree["ema"] = _named(self.ema_net, self.ema_mixer)
         if a.ckpt_replay:
             tree["replay"] = {"data": self.replay.data,
                               "cursor": self.replay.cursor,
@@ -161,13 +188,33 @@ class Trainer:
         checkpoint.save(path, _cpu(self._tree()))
         return path
 
-    @torch.no_grad()
     def _set_params(self, params: dict, target: dict):
-        for k, p in self.net.named_parameters():
-            p.copy_(params["agent"][k])
+        _copy(_named(self.net, self.mixer), params)
         if self.learner is not None:
-            for k, p in self.learner.target_net.named_parameters():
-                p.copy_(target["agent"][k])
+            _copy(_named(self.learner.target_net, self.learner.target_mixer),
+                  target)
+
+    def _restructure_params(self, data: dict, path: str) -> dict:
+        """Saved params laid out as this trainer's.  The agent must match
+        exactly.  A QMIX mixer's first layers are ``state_dim`` wide, so
+        one trained on another board does not fit this one: greedy
+        evaluation never calls the mixer, so it is dropped and this
+        trainer's fresh mixer kept (JAX trainer.py:373-390)."""
+        template = _named(self.net, self.mixer)
+        if self.mixer is None or "mixer" not in data:
+            return checkpoint.restructure(template, data, path)
+        out = {"agent": checkpoint.restructure(template["agent"],
+                                               data["agent"], path)}
+        try:
+            out["mixer"] = checkpoint.restructure(template["mixer"],
+                                                  data["mixer"], path)
+        except ValueError:
+            print("load_model: the QMIX mixer's shape is tied to the "
+                  "training board; keeping a fresh mixer (greedy evaluation "
+                  "does not call it) for this board size", flush=True)
+            out["mixer"] = {k: v.detach().clone()
+                            for k, v in template["mixer"].items()}
+        return out
 
     def load_model(self, tag, params_only: bool = False):
         """Restore a checkpoint (JAX trainer.py:352-454).
@@ -188,21 +235,20 @@ class Trainer:
         this run's state (a JAX PRNG key has no torch counterpart)."""
         path = checkpoint.model_state_path(self.args, tag)
         tree = checkpoint.load(path)
-        params = _named(self.net)
         if params_only:
             if "ema" in tree:
-                agent = checkpoint.restructure(params, tree["ema"], path)
-                self._set_params(agent, agent)
+                ema = self._restructure_params(tree["ema"], path)
+                self._set_params(ema, ema)
             else:
                 learner = tree["learner"]
                 self._set_params(
-                    checkpoint.restructure(params, learner["params"], path),
-                    checkpoint.restructure(
-                        params, learner.get("target_params",
-                                            learner["params"]), path))
+                    self._restructure_params(learner["params"], path),
+                    self._restructure_params(
+                        learner.get("target_params", learner["params"]),
+                        path))
                 if self.learner is not None:
                     self.learner.train_step = int(learner["train_step"])
-            self.ema_net = None
+            self.ema_net = self.ema_mixer = None
             self.epsilon = tree["epsilon"]
             return
         if self.learner is None:
@@ -219,12 +265,15 @@ class Trainer:
         template = self._tree()
         if path.endswith(".npz"):
             del template["generator"]
-        tree = checkpoint.restructure(template, tree, path)
+        # the net config was read by restore_net_config, and the params'
+        # shapes hold it; a JAX export's has fewer keys than the port's
+        template.pop("net_config")
+        tree = checkpoint.restructure(
+            template, {k: v for k, v in tree.items() if k != "net_config"},
+            path)
         self.learner.load_state(tree["learner"])
         if self.ema_net is not None:
-            with torch.no_grad():
-                for k, p in self.ema_net.named_parameters():
-                    p.copy_(tree["ema"]["agent"][k])
+            _copy(_named(self.ema_net, self.ema_mixer), tree["ema"])
         if "replay" in tree:
             r = tree["replay"]
             self.replay = replay_lib.ReplayState(r["data"], r["cursor"],
@@ -256,10 +305,12 @@ class Trainer:
             self.replay, self.updates_per_rollout, self.generator))
         if self.ema_net is not None:
             d = self.cycle_decay
+            ema = _named(self.ema_net, self.ema_mixer)
+            live = _named(self.net, self.mixer)
             with torch.no_grad():
-                for e, p in zip(self.ema_net.parameters(),
-                                self.net.parameters()):
-                    e.copy_(d * e + (1.0 - d) * p)
+                for part, params in ema.items():
+                    for k, e in params.items():
+                        e.copy_(d * e + (1.0 - d) * live[part][k])
         self.n_cycles += 1
         return int(result.steps.sum())
 

@@ -65,12 +65,13 @@ def test_evaluate_without_a_checkpoint_raises(tmp_path):
 
 
 def test_unported_envs_and_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfig.get_evaluate_args(["meda"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_env("meda")
+    """MEDA and QMIX are ported (``test_torch_meda_*.py``,
+    ``test_torch_qmix.py``); what neither package has still raises: an
+    unknown env, a DMFB v0.2 observation, an unknown ``--alg``."""
+    with pytest.raises(ValueError, match="unknown env"):
+        make_env("pcr")
     with pytest.raises(ValueError):
         make_env("dmfb", version="0.2")
-    args = tconfig.get_evaluate_args(["dmfb", "--device=cpu", "--alg=qmix"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    args = tconfig.get_evaluate_args(["dmfb", "--device=cpu", "--alg=coma"])
+    with pytest.raises(ValueError, match="--alg"):
         Trainer(tconfig.make_env_from_args(args), args, eval_only=False)

@@ -45,6 +45,9 @@ EXPORTS = {
     "dmfb_20x20_4d_bf16": "dmfb_20x20_4d_bf16/0_final_state",
     "dmfb_10x10_2d_fov9_vdn_v01": "dmfb_10x10_2d_fov9_vdn_v01",
     "dmfb_10x10_4d_fov9_vdn": "dmfb_10x10_4d_fov9_vdn",
+    "meda_30x60_4d_fov19_vdn": "meda_30x60_4d_fov19_vdn",
+    "meda_30x60_3d_fov19_qmix": "meda_30x60_3d_fov19_qmix",
+    "dmfb_20x20_4d_fov9_qmix": "dmfb_20x20_4d_fov9_qmix",
 }
 # a sum of T = 80 per-step team rewards, each within 1e-5 of JAX's
 REWARD_SUM_ATOL = 1e-5

@@ -96,6 +96,10 @@ def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for want in ("chip_smoke.py", "marl_dmfb_tpu_torch/envs/dmfb.py",
                  "marl_dmfb_tpu_torch/envs/dmfb_v01.py",
+                 "marl_dmfb_tpu_torch/envs/meda.py",
+                 "marl_dmfb_tpu_torch/envs/registry.py",
+                 "marl_dmfb_tpu_torch/models/networks.py",
+                 "marl_dmfb_tpu_torch/rollout.py",
                  "marl_dmfb_tpu_torch/eva_degrade.py",
                  "marl_dmfb_tpu_torch/ops/dmfb_step.py",
                  "marl_dmfb_tpu_torch/evaluate.py",

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from marl_dmfb_tpu_torch.algos.qlearn import VDNLearner, unroll
+from marl_dmfb_tpu_torch.algos.qlearn import QLearner, unroll
 from marl_dmfb_tpu_torch.models.networks import build_agent_net
 from tests.torch_learn_util import (both, check_updates, jax_learner,
                                     random_batch)
@@ -71,7 +71,7 @@ def test_padded_steps_add_nothing_and_stay_finite():
     (1 - terminated) = 0: the loss is finite, and it does not change when
     the padded steps' observations change."""
     ta = jax_learner().ta
-    learner = VDNLearner(ta, build_agent_net(ta))
+    learner = QLearner(ta, build_agent_net(ta))
     batch = random_batch(np.random.RandomState(4))
     assert batch["padded"].any()
     base = float(learner.loss(both(batch)[1]).detach())

@@ -51,11 +51,22 @@ def test_train_defaults_to_cuda_and_raises_without_it(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    "--mesh=4", "--local_sampling", "--vmap_seeds=2", "--remat",
-    "--fused_streams"])
+    "--mesh=4", "--local_sampling", "--vmap_seeds=2", "--fused_streams"])
 def test_unported_train_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tconfig.get_train_args(["dmfb", flag], pri=False)
+
+
+@pytest.mark.parametrize("name", ["dmfb", "meda"])
+def test_remat_parses_as_jax_and_reaches_the_learner(name):
+    """``--remat`` is ported (``tests/test_torch_meda_train.py`` holds its
+    loss and gradients to the run without it)."""
+    argv = [name, "--remat"]
+    t = tconfig.get_train_args(argv, pri=False)
+    assert t.remat is True is jconfig.get_train_args(argv, pri=False).remat
+    t.device, t.buffer_size, t.evaluate_task = "cpu", 4, 2
+    trainer = Trainer(make_env_from_args(t), t)
+    assert trainer.learner.args.remat
 
 
 def test_compute_dtype_bf16_is_ported():

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from marl_dmfb_tpu_torch import checkpoint
-from marl_dmfb_tpu_torch.algos.qlearn import VDNLearner
+from marl_dmfb_tpu_torch.algos.qlearn import QLearner
 from marl_dmfb_tpu_torch.config import Args
 from marl_dmfb_tpu_torch.envs import make_env
 from marl_dmfb_tpu_torch.models.networks import build_agent_net, init_params
@@ -218,7 +218,7 @@ def _build(what, args):
     if what == "trainer":
         Trainer(env, args)
     elif what == "learner":
-        VDNLearner(args, net)
+        QLearner(args, net)
     else:
         make_rollout(env, net, args.rnn_hidden_dim)
 
@@ -260,8 +260,8 @@ def test_cuda_learner_matches_cpu(tmp_path):
     env = make_env("dmfb", width=5, length=5, n_droplets=2, fov=5)
     args.update_env_info(env.env_info())
     net = init_params(build_agent_net(args), torch.Generator().manual_seed(3))
-    cpu = VDNLearner(args, net)
-    card = VDNLearner(args, build_agent_net(args).cuda())
+    cpu = QLearner(args, net)
+    card = QLearner(args, build_agent_net(args).cuda())
     card.load_state(cpu.state())
     rng = np.random.RandomState(0)
     noisy = {k: torch.zeros(v.shape, dtype=torch.bool)

@@ -1,6 +1,7 @@
-"""Helpers for the learner tests of the PyTorch port: the same small VDN
-configuration in both packages, random episode batches, the JAX learner
-state carried across, and the parameter comparison.
+"""Helpers for the learner tests of the PyTorch port: the same small VDN or
+QMIX configuration in both packages (DMFB, or MEDA with ``SMALL_MEDA``),
+random episode batches, the JAX learner state carried across, and the
+parameter comparison (the agent's, and a QMIX mixer's).
 
 Tolerances, for float32 on the CPU in both packages:
 
@@ -26,13 +27,11 @@ import torch
 
 from marl_dmfb_tpu import config as jconfig
 from marl_dmfb_tpu.algos.qlearn import make_learner
-from marl_dmfb_tpu.envs import make_env as jmake_env
 from marl_dmfb_tpu_torch import config as tconfig
-from marl_dmfb_tpu_torch.algos.qlearn import VDNLearner
-from marl_dmfb_tpu_torch.envs import make_env as tmake_env
+from marl_dmfb_tpu_torch.algos.qlearn import QLearner
 from marl_dmfb_tpu_torch.models.convert import (from_flax_learner_state,
-                                                from_flax_params)
-from marl_dmfb_tpu_torch.models.networks import build_agent_net
+                                                from_flax_tree)
+from marl_dmfb_tpu_torch.models.networks import build_agent_net, build_mixer
 
 LOSS_RTOL = 1e-6
 GRAD_ATOL = 1e-6      # times the global norm of the gradient
@@ -43,7 +42,12 @@ PARAM_ATOL = 1e-5
 SMALL = dict(name="dmfb", drop_num=2, fov=5, width=5, length=5,
              batch_size=4, buffer_size=8, n_parallel_envs=4,
              rnn_hidden_dim=16, hyper_hidden_dim=8, target_update_cycle=2)
-ENV = dict(width=5, length=5, n_droplets=2, fov=5)
+# MEDA 15x30, 2 droplets, fov 5, the v0.2 observation (T = 45, obs_dim =
+# 77, a QMIX state of 900), the same widths
+SMALL_MEDA = (("name", "meda"), ("width", 15), ("length", 30),
+              ("version", "0.2"))
+# QMIX: mixer hidden 8, its hypernets' hidden layer 8 (hyper_hidden_dim)
+QMIX = (("alg", "qmix"), ("qmix_hidden_dim", 8))
 
 torch.set_num_threads(1)
 
@@ -52,7 +56,7 @@ def arg_pair(**kw):
     """(JAX args, port args, JAX env, port env) of one configuration."""
     ja = jconfig.Args(**{**SMALL, **kw})
     ta = tconfig.Args(**{**SMALL, **kw}, device="cpu")
-    je, te = jmake_env("dmfb", **ENV), tmake_env("dmfb", **ENV)
+    je, te = jconfig.make_env_from_args(ja), tconfig.make_env_from_args(ta)
     ja.update_env_info(je.env_info())
     ta.update_env_info(te.env_info())
     return ja, ta, je, te
@@ -79,23 +83,29 @@ def jax_learner(items=()) -> JaxLearner:
                       learn_many, net, ja, ta)
 
 
-def port_learner(ta, jstate) -> VDNLearner:
+def port_learner(ta, jstate) -> QLearner:
     """The port's learner, carrying ``jstate`` (a JAX ``LearnerState``)."""
-    learner = VDNLearner(ta, build_agent_net(ta))
+    learner = QLearner(ta, build_agent_net(ta), build_mixer(ta))
     learner.load_state(from_flax_learner_state(
         jax.tree.map(np.asarray, jstate)))
     return learner
 
 
-def random_batch(rng, b=4, T=20, N=2, D=77) -> dict:
+def random_batch(rng, b=4, T=20, N=2, D=77, A=5, S=None) -> dict:
     """``b`` episodes in the learner's ``(b, T, N, .)`` layout, of random
     lengths: steps after the last are padded (zero action and reward) and
-    terminated, as the rollout stores them."""
+    terminated, as the rollout stores them; with ``S``, global states of
+    ids in [0, N] (zero on padded steps)."""
     lens = rng.randint(1, T + 1, size=b)
     t = np.arange(T)[None]
     padded = t >= lens[:, None]
-    u = rng.randint(0, 5, size=(b, T, N))
-    return {
+    u = rng.randint(0, A, size=(b, T, N))
+    batch = {}
+    if S is not None:
+        s_ext = rng.randint(0, N + 1, size=(b, T + 1, S))
+        live = np.arange(T + 1)[None] <= lens[:, None]
+        batch["s_ext"] = np.where(live[..., None], s_ext, 0).astype(np.int8)
+    return batch | {
         "o_ext": rng.randint(-1, 3, size=(b, T + 1, N, D)).astype(np.int8),
         "u": np.where(padded[..., None], 0, u).astype(np.int8)[..., None],
         "r": np.where(padded, 0, rng.randn(b, T)).astype(
@@ -110,10 +120,25 @@ def both(batch: dict):
             {k: torch.from_numpy(v) for k, v in batch.items()})
 
 
+def flat_names(tree: dict) -> dict:
+    """``{"agent": ..., "mixer": ...}`` of tensors -> the learner's flat
+    names (``QLearner.all_params``: the mixer's prefixed ``mixer.``)."""
+    return {("mixer." if part == "mixer" else "") + k: v
+            for part, d in tree.items() for k, v in d.items()}
+
+
 def agent_np(tree) -> dict:
-    """A flax agent tree (JAX params or grads) in the port's names."""
-    return {k: v.numpy() for k, v in from_flax_params(
-        jax.tree.map(np.asarray, tree["agent"])).items()}
+    """A flax params tree (JAX params or grads: the agent's, and a QMIX
+    mixer's) in the port's flat names."""
+    return {k: v.numpy() for k, v in flat_names(from_flax_tree(
+        jax.tree.map(np.asarray, dict(tree)))).items()}
+
+
+def batch_for(ta, rng) -> dict:
+    """A random batch of ``ta``'s shapes (a state under QMIX)."""
+    return random_batch(rng, T=ta.episode_limit, N=ta.n_agents,
+                        D=ta.obs_shape[-1], A=ta.n_actions,
+                        S=ta.state_shape if ta.alg == "qmix" else None)
 
 
 def global_norm(grads: dict) -> float:
@@ -148,7 +173,7 @@ def check_updates(items=(), n=3, jstate=None, seed=0):
     rng = np.random.RandomState(seed)
     noisy, norms = None, []
     for k in range(n):
-        jb, tb = both(random_batch(rng))
+        jb, tb = both(batch_for(J.ta, rng))
         jl, jg = J.loss_grad(st.params, st.target_params, jb)
         jg = agent_np(jg)
         norm = global_norm(jg)
@@ -170,11 +195,13 @@ def check_updates(items=(), n=3, jstate=None, seed=0):
                                    rtol=LOSS_RTOL)
         assert port.train_step == int(st.train_step)
         where = f"after update {k + 1}: "
-        assert_params_close(agent_np(st.params), port.params, noisy,
-                            J.ja.lr, k + 1, where)
+        state = port.state()
+        assert_params_close(agent_np(st.params),
+                            flat_names(state["params"]), noisy, J.ja.lr,
+                            k + 1, where)
         assert_params_close(agent_np(st.target_params),
-                            dict(port.target_net.named_parameters()),
-                            noisy, J.ja.lr, k + 1, where + "target ")
+                            flat_names(state["target_params"]), noisy,
+                            J.ja.lr, k + 1, where + "target ")
     return st, port, norms
 
 
@@ -187,3 +214,89 @@ def assert_rings_equal(jr, tr):
         assert tr.data[k].dtype == getattr(torch, str(jr.data[k].dtype)), k
         np.testing.assert_array_equal(np.array(jr.data[k]),
                                       tr.data[k].numpy(), err_msg=k)
+
+
+def check_composed(items=(), cycles=2, K=2):
+    """``cycles`` cycles of rollout (JAX's draws replayed; with the global
+    states under QMIX) -> ``store`` -> ``learn_many`` (``K`` updates, with
+    JAX's minibatch indices: ``keys = split(key, K)``, ``randint(keys[k],
+    (batch,), 0, max(size, 1))``) in both packages, from the same state,
+    on a ring of ``buffer_size`` episodes.  The episodes and the rings are
+    held equal exactly, the losses and params to the tolerances above."""
+    from marl_dmfb_tpu import replay as jreplay
+    from marl_dmfb_tpu.rollout import make_rollout as jmake_rollout
+    from marl_dmfb_tpu_torch import replay as treplay
+    from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
+    from marl_dmfb_tpu_torch.envs import meda as tmeda
+    from marl_dmfb_tpu_torch.rollout import make_rollout as tmake_rollout
+    from tests.torch_port_util import replay_noise, to_torch_state
+
+    J = jax_learner(items)
+    ja, ta, jenv, tenv = arg_pair(**dict(items))
+    B, A, N, S = ja.rollout_batch, ja.n_actions, ja.n_agents, ja.buffer_size
+    qmix = ja.alg == "qmix"
+    cls = tmeda.MEDAState if ja.name == "meda" else tdmfb.DMFBState
+    to_port = lambda s: to_torch_state(s, cls=cls)
+    jst = J.init(jax.random.PRNGKey(5))
+    port = port_learner(ta, jst)
+    jroll = jmake_rollout(jenv, J.net, ja.rnn_hidden_dim, with_state=qmix)
+    state_dim = ja.state_shape if qmix else None
+    jr = jreplay.init_replay(S, ja.episode_limit, N, ja.obs_shape[-1], A,
+                             obs_dtype=jenv.params.obs_dtype,
+                             state_dim=state_dim)
+    tr = treplay.init_replay(S, ta.episode_limit, N, ta.obs_shape[-1],
+                             obs_dtype=tenv.params.obs_dtype,
+                             state_dim=state_dim)
+    states = jax.vmap(jenv.init)(jax.random.split(jax.random.PRNGKey(6), B))
+    eps, anneal = 0.6, 0.002
+    noisy = {k: np.zeros(v.shape, bool) for k, v in port.all_params.items()}
+    updates = 0
+    for cycle in range(cycles):
+        key = jax.random.PRNGKey(10 + cycle)
+        jres = jroll(jst.params["agent"], states, key, jnp.float32(eps),
+                     jnp.float32(anneal), jnp.float32(0.05))
+        reset = jax.jit(jax.vmap(jenv.reset))(states)
+        noise = replay_noise(key, reset, ja.episode_limit, B, N, A)
+        t_reset = to_port(reset)
+        troll = tmake_rollout(tenv._replace(reset=lambda s, g: t_reset),
+                              port.net, ta.rnn_hidden_dim, with_state=qmix)
+        tres = troll(to_port(states), None, eps, anneal, 0.05, noise=noise)
+        assert tres.episodes.keys() == jres.episodes.keys()
+        for k in jres.episodes:
+            np.testing.assert_array_equal(
+                np.array(jres.episodes[k]).astype(np.float32),
+                tres.episodes[k].numpy().astype(np.float32), err_msg=k)
+        jr = jreplay.store(jr, jres.episodes)
+        tr = treplay.store(tr, tres.episodes)
+        assert_rings_equal(jr, tr)
+
+        lkey = jax.random.PRNGKey(20 + cycle)
+        idx = np.stack([np.array(jax.random.randint(
+            k, (ja.batch_size,), 0, jnp.maximum(jr.size, 1)))
+            for k in jax.random.split(lkey, K)])
+        # the JAX gradients of the same updates, one at a time, mark the
+        # elements whose gradient is float noise
+        st = jst
+        for k in range(K):
+            batch = jreplay.logical_views(
+                {n: v[idx[k]] for n, v in jr.data.items()})
+            _, g = J.loss_grad(st.params, st.target_params, batch)
+            g = agent_np(g)
+            norm = global_norm(g)
+            for n, gn in g.items():
+                noisy[n] |= np.abs(gn) <= GRAD_ATOL * norm
+            st, _ = J.learn(st, batch)
+        jst, jloss = J.learn_many(jst, jr.data, jr.size, lkey, K)
+        tloss = port.learn_many(tr, K, idx=torch.from_numpy(idx))
+        updates += K
+        np.testing.assert_allclose(float(tloss), float(jloss),
+                                   rtol=LOSS_RTOL)
+        assert port.train_step == int(jst.train_step) == updates
+        state = port.state()
+        assert_params_close(agent_np(jst.params), flat_names(state["params"]),
+                            noisy, ja.lr, updates, f"cycle {cycle}: ")
+        assert_params_close(agent_np(jst.target_params),
+                            flat_names(state["target_params"]), noisy,
+                            ja.lr, updates, f"cycle {cycle}: target ")
+        states = jres.env_states
+    return jr, tr, port

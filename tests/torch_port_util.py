@@ -3,6 +3,7 @@ with the JAX package, carry them to the PyTorch port as numpy arrays, and
 compare the two packages' outputs."""
 
 import functools
+import glob
 import os
 
 import jax
@@ -20,15 +21,18 @@ STATE_EXACT = ("pos", "start", "goal", "dist", "block_mask", "usage",
 OUT_EXACT = ("obs", "dones", "terminated", "constraints", "success")
 REWARD_ATOL = 1e-5   # float32 sums taken in another order
 # the deploy exports of JAX artifacts (tools/export_flax_npz.py), each a run
-# directory holding model/vdn/fov9/0_final_state.npz
+# directory holding model/<alg>/fov<fov>/0_final_state.npz
 WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "fixtures", "torch_weights")
 
 
 def committed_export(name: str) -> str:
-    """The committed deploy export of the artifact ``name``."""
-    return os.path.join(WEIGHTS, name, "model", "vdn", "fov9",
-                        "0_final_state.npz")
+    """The committed deploy export of the artifact ``name`` (its one
+    ``model/<alg>/fov<fov>/0_final_state.npz``)."""
+    found = glob.glob(os.path.join(WEIGHTS, name, "model", "*", "fov*",
+                                   "0_final_state.npz"))
+    assert len(found) == 1, (name, found)
+    return found[0]
 
 # pytest-xdist runs several workers on the same cores, and torch's intra-op
 # pool in each would oversubscribe them: the port's many small CPU ops then
@@ -40,11 +44,12 @@ def params_pair(**kw):
     return jdmfb.DMFBParams(**kw), tdmfb.DMFBParams(**kw)
 
 
-def to_torch_state(jstate, device="cpu") -> tdmfb.DMFBState:
-    """A batched JAX DMFBState as the port's (the PRNG key is dropped)."""
-    return tdmfb.DMFBState(**{
+def to_torch_state(jstate, device="cpu", cls=tdmfb.DMFBState):
+    """A batched JAX env state as the port's ``cls`` (DMFBState, or
+    MEDAState); the PRNG key is dropped."""
+    return cls(**{
         f: torch.from_numpy(np.array(getattr(jstate, f))).to(device)
-        for f in tdmfb.DMFBState._fields
+        for f in cls._fields
     })
 
 
