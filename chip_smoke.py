@@ -54,10 +54,27 @@ Phases, each printing its seconds:
    ``train meda --drop_num=4`` and ``train dmfb --alg=qmix
    --chip_size=20`` at the CLI's widths for a few cycles, timed; the QMIX
    learner of MEDA 30x60-3d on the card against the CPU; and a 2-epoch x
-   20-task MEDA degradation sweep.
+   20-task MEDA degradation sweep;
+8. the seed farm and the aux modules: ``train dmfb --drop_num=4 --fov=9
+   --vmap_seeds=4 --n_parallel_envs=64`` at full width (4 seeds, each with
+   the main config's nets, batch 128 and replay 5000) for about 3 cycles
+   and its two evaluations, the kernel launched T times a farm rollout at
+   batch 4 x 64; one farm rollout held against the same rollout through
+   the plain step; the farm's first cycle against card ``Trainer(seed +
+   i)`` for i = 0..3 (each seed's mean loss within rtol ``LOSS_RTOL``, its
+   params after ``LEARN_UPDATES`` updates within ``PARAM_ATOL`` outside
+   float-noise gradients, as phase 5); ms per farm cycle
+   and per farm update beside one seed's, with each update's kernel
+   launches and device time from ``torch.profiler`` (ops that ran once per
+   seed are named); a resume under ``--ckpt_replay`` whose curves must
+   equal an uninterrupted run's bitwise (cuDNN's deterministic algorithms
+   on); the PettingZoo shim's episode on the card against the CPU's,
+   ``Agents.choose_action`` and a ``Renderer`` frame of a card state
+   against the CPU's; and the MEDA staircase router on 100 tasks.
 
 The kernel JSON line (the kernel's numbers), a training JSON line, a
-trained-policies JSON line and a MEDA/QMIX JSON line come before the last,
+trained-policies JSON line, a MEDA/QMIX JSON line and a farm JSON line come
+before the last,
 ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is non-zero and no result line is printed.  Exits
 non-zero at once where CUDA is unavailable.  Writes nothing but the kernel
@@ -161,6 +178,22 @@ MEDA_QMIX_TRAIN = [
 ]
 QMIX_LEARN_BATCH = 8
 MEDA_SWEEP = dict(epochs=2, tasks=20)
+# phase 8: the seed farm at the main config's widths, cut to about 3 cycles
+# (a failed episode counts T = 40 steps, so a cycle counts at most 64 x 40
+# per seed); the resume check at a small width (8 chips a rollout, rings of
+# 64, minibatches of 16: 4 updates a cycle, evaluations every 600 steps)
+FARM_S = 4
+FARM_B = 64
+FARM_STEPS = 3 * FARM_B * 40
+FARM_ARGV = ["dmfb", "--drop_num=4", "--fov=9", f"--n_parallel_envs={FARM_B}",
+             "--evaluate_task=100"]
+FARM_RESUME_ARGV = ["dmfb", "--drop_num=4", "--fov=9", f"--vmap_seeds={FARM_S}",
+                    "--n_parallel_envs=8", "--buffer_size=64",
+                    "--batch_size=16", "--evaluate_task=20",
+                    "--evaluate_cycle=600", "--ckpt_replay"]
+FARM_RESUME_STEPS = (900, 1500)   # the stopped run's budget, the full one
+FARM_TIMED_CYCLES = 1   # a full-width farm cycle takes seconds
+ROUTER_TASKS = 100
 
 
 def log(msg):
@@ -847,6 +880,402 @@ def meda_qmix(smi) -> dict:
     return out
 
 
+def mark_noise(learner):
+    """Wrap ``learner.loss_and_grads`` to mark, at each update, every
+    parameter element whose gradient is within ``NOISE`` of the gradient's
+    global norm of zero; returns the masks (on the card)."""
+    noisy = {k: torch.zeros(v.shape, dtype=torch.bool, device=v.device)
+             for k, v in learner.all_params.items()}
+    plain = learner.loss_and_grads
+
+    def marking(batch):
+        loss, grads = plain(batch)
+        norm = torch.sqrt(sum((g.double() ** 2).sum()
+                              for g in grads.values()))
+        for k, g in grads.items():
+            noisy[k] |= g.abs() <= NOISE * norm
+        return loss, grads
+
+    learner.loss_and_grads = marking
+    return noisy
+
+
+def snapshot_after(learner, n, take) -> list:
+    """Wrap ``learner.update`` so that ``take()`` runs once, right after
+    its ``n``-th call; returns the list that will hold its result."""
+    plain, calls, taken = learner.update, [0], []
+
+    def update(batch):
+        loss = plain(batch)
+        calls[0] += 1
+        if calls[0] == n:
+            taken.append(take())
+        return loss
+
+    learner.update = update
+    return taken
+
+
+def profile_calls(fn, reps=2):
+    """Kernel launches, device ms and ATen ops by count per call of ``fn``,
+    from a ``torch.profiler`` trace of ``reps`` calls after one warm-up;
+    also the ``torch.func`` batching-rule fallbacks warned of (an op run
+    once per seed)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    device_us = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+                    for e in kernels)
+    ops = {e.key: e.count / reps for e in events
+           if e.device_type.name == "CPU" and e.key.startswith("aten::")}
+    fallbacks = sorted({str(w.message) for w in warned
+                        if "batching rule" in str(w.message)})
+    return dict(launches=sum(e.count for e in kernels) / reps,
+                device_ms=device_us / 1e3 / reps, ops=ops,
+                fallbacks=fallbacks)
+
+
+def time_calls(fn, reps) -> float:
+    """ms per call of ``fn`` on the host clock, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def seed_farm(smi) -> dict:
+    """Phase 8: the seed farm and the aux modules on the card (module
+    docstring); raises on any failed check, returns the numbers."""
+    from marl_dmfb_tpu_torch import router_baseline, train
+    from marl_dmfb_tpu_torch.agent import Agents
+    from marl_dmfb_tpu_torch.config import get_train_args, make_env_from_args
+    from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
+    from marl_dmfb_tpu_torch.envs import make_env
+    from marl_dmfb_tpu_torch.envs.pettingzoo_shim import ParallelEnvShim
+    from marl_dmfb_tpu_torch.models.networks import StackedNet
+    from marl_dmfb_tpu_torch.ops import dmfb_step
+    from marl_dmfb_tpu_torch.parallel.seedfarm import SeedFarm
+    from marl_dmfb_tpu_torch.render import Renderer
+    from marl_dmfb_tpu_torch.replay import sample, sample_stacked
+    from marl_dmfb_tpu_torch.rollout import make_rollout
+    from marl_dmfb_tpu_torch.trainer import Trainer
+
+    t8 = time.perf_counter()
+    out = {"phase_s": {}}
+    S = FARM_S
+
+    # 1. the farm through the train entry point, at full width
+    t0 = time.perf_counter()
+    data_dir = os.path.join(ROOT, "build", "chip_smoke_farm")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    argv = FARM_ARGV + [f"--vmap_seeds={S}", f"--exact_steps={FARM_STEPS}",
+                        "--evaluate_cycle=1000000", f"--data_dir={data_dir}"]
+    torch.cuda.synchronize()
+    base = run_memory_start()
+    dmfb_step.launches = 0
+    farm = train.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dmfb_step.launches
+    peak = run_peak_mib(base)
+    a = farm.args
+    width = (a.hyper_hidden_dim, a.rnn_hidden_dim, a.batch_size,
+             a.buffer_size, farm.B, farm.updates_per_rollout, farm.S)
+    if width != (24, 128, 128, 5000, FARM_B, 32, S):
+        raise AssertionError(f"the farm trained at (conv, hidden, batch, "
+                             f"replay, B, updates a cycle, seeds) = {width}")
+    T = farm.env.episode_limit
+    cycles = farm.n_cycles
+    evals = len(farm.curves["success_rate"])
+    if launches != T * (cycles + evals) or evals != 2 or cycles < 3:
+        raise AssertionError(f"the farm launched the kernel {launches} times "
+                             f"in {cycles} cycles and {evals} evaluations")
+    losses = torch.stack(farm.losses).cpu()
+    if not bool(losses.isfinite().all()) or losses.shape != (cycles, S):
+        raise AssertionError(f"farm losses {losses.tolist()}")
+    ckpts = sorted(os.listdir(farm.model_dir))
+    if ckpts != sorted([f"{i}_{t}_state.pt" for i in range(S)
+                        for t in (0, "final")] + ["farm_0_resume.pt"]):
+        raise AssertionError(f"the farm wrote {ckpts}")
+    dmfb_step.launches = 0
+    farm.train_cycle()
+    launches_rollout = dmfb_step.launches
+    if launches_rollout != T:
+        raise AssertionError(f"a farm rollout of {S} x {FARM_B} chips "
+                             f"launched the kernel {launches_rollout} times, "
+                             f"expected T = {T}")
+    out["train"] = dict(cycles=cycles, evaluations=evals, seconds=seconds,
+                        launches=launches, launches_rollout=launches_rollout,
+                        batch=S * FARM_B, peak_mib=peak,
+                        losses=losses.tolist(),
+                        success=[c.tolist() for c in
+                                 farm.curves["success_rate"]])
+    log(f"phase 8: [{smi}] farm of {S} seeds x B={FARM_B} ({a.batch_size} "
+        f"batch, replay {a.buffer_size} each): {cycles} cycles in "
+        f"{seconds:.2f} s, kernel launches {launches} = T x ({cycles} + "
+        f"{evals}); a farm rollout launches it {launches_rollout} times at "
+        f"batch {S * FARM_B}; peak memory {peak:.1f} MiB; losses "
+        f"{[[round(x, 4) for x in row] for row in losses.tolist()]}")
+
+    # 2. one farm rollout through the kernel and through the plain step
+    states, noise = farm._draws(farm.env_states, farm.generators, False)
+    reset = farm.env._replace(reset=lambda st, gen: st)   # done above
+    plain = reset._replace(
+        step_core=lambda st, act, u: tdmfb.step_core(farm.env.params, st,
+                                                     act, u))
+    episodes = {}
+    for name, env in (("kernel", reset), ("plain", plain)):
+        roll = make_rollout(env, StackedNet(farm.net,
+                                            farm.learner.agent_params(), S),
+                            a.rnn_hidden_dim)
+        res = roll(states, None, farm.epsilon, farm.anneal_per_step,
+                   a.min_epsilon, noise=noise)
+        episodes[name] = (res.episodes, res.env_states)
+    (ek, sk), (ep, sp) = episodes["kernel"], episodes["plain"]
+    for k in ("o_ext", "u", "padded", "terminated"):
+        if not torch.equal(ek[k], ep[k]):
+            raise AssertionError(f"the farm rollout's {k} differs, kernel "
+                                 "against plain")
+    r_diff = float((ek["r"] - ep["r"]).abs().max())
+    if not r_diff <= REWARD_ATOL or not all(
+            torch.equal(x, y) for x, y in zip(sk, sp)):
+        raise AssertionError(f"the farm rollout departs from the plain step "
+                             f"(rewards {r_diff})")
+    out["rollout_vs_plain"] = dict(batch=S * FARM_B, reward_diff=r_diff)
+    log(f"phase 8: a farm rollout at batch {S * FARM_B}, kernel == plain "
+        f"step (episodes and chips bitwise, rewards max |diff| "
+        f"{r_diff:.3g})")
+    del farm, episodes, states, noise
+    out["phase_s"]["train"] = time.perf_counter() - t0
+
+    # 3. the farm's first cycle against single seeds on the card: each
+    # seed's mean loss over the cycle, and its params after the first
+    # LEARN_UPDATES updates, as phase 5 holds the card against the CPU
+    # (over a cycle's 32 updates two float32 summing orders drift apart by
+    # more than float noise: 6.7e-5 in one run)
+    t0 = time.perf_counter()
+    cmp_dir = os.path.join(ROOT, "build", "chip_smoke_farm_cmp")
+    singles = []
+    for i in range(S):
+        sa = get_train_args(FARM_ARGV + [f"--seed={12 + i}",
+                                         f"--data_dir={cmp_dir}"], pri=False)
+        t = Trainer(make_env_from_args(sa), sa)
+        noisy = mark_noise(t.learner)
+        early = snapshot_after(
+            t.learner, LEARN_UPDATES,
+            lambda t=t, noisy=noisy: (t.learner.state()["params"]["agent"],
+                                      {k: v.clone()
+                                       for k, v in noisy.items()}))
+        t.train_cycle()
+        singles.append((t, early[0]))
+    fa = get_train_args(FARM_ARGV + [f"--vmap_seeds={S}",
+                                     f"--data_dir={cmp_dir}"], pri=False)
+    farm = SeedFarm(make_env_from_args(fa), fa, S)
+    farm_early = snapshot_after(farm.learner, LEARN_UPDATES,
+                                lambda: farm.learner.state()["params"])
+    farm.train_cycle()
+    loss_rel = clean = worst = cycle_worst = 0.0
+    for i, (t, (params, noisy)) in enumerate(singles):
+        want = float(t.losses[0])
+        loss_rel = max(loss_rel, abs(float(farm.losses[0][i]) - want)
+                       / abs(want))
+        for k, v in params.items():
+            diff = (farm_early[0]["agent"][k][i] - v).abs()
+            kept = diff[~noisy[k]]
+            clean = max(clean, float(kept.max()) if kept.numel() else 0.)
+            worst = max(worst, float(diff.max()))
+        mine = farm.learner.seed_state(i)["params"]["agent"]
+        for k, v in t.learner.state()["params"]["agent"].items():
+            cycle_worst = max(cycle_worst, float((mine[k] - v).abs().max()))
+        if float(farm.epsilon[i]) != float(t.epsilon):
+            raise AssertionError(f"seed {i}: epsilon {float(farm.epsilon[i])}"
+                                 f" against {float(t.epsilon)}")
+    updates = farm.learner.train_step
+    adam_bound = 2 * fa.lr * LEARN_UPDATES
+    cycle_bound = 2 * fa.lr * updates
+    log(f"phase 8: [{smi}] farm vs {S} single seeds on the card, one cycle "
+        f"({updates} updates): mean loss rel diff {loss_rel:.3g} (<= "
+        f"{LOSS_RTOL}); params after {LEARN_UPDATES} updates max diff "
+        f"{clean:.3g} outside noise gradients (<= {PARAM_ATOL}), {worst:.3g} "
+        f"in all (<= {adam_bound:.3g}); after the cycle {cycle_worst:.3g} "
+        f"(<= {cycle_bound:.3g}); epsilons equal")
+    if not (loss_rel <= LOSS_RTOL and clean <= PARAM_ATOL
+            and worst <= adam_bound and cycle_worst <= cycle_bound):
+        raise AssertionError("the farm departs from its single seeds")
+    out["farm_vs_singles"] = dict(loss_rel=loss_rel, param_diff=clean,
+                                  param_diff_all=worst,
+                                  param_diff_cycle=cycle_worst)
+    out["phase_s"]["farm_vs_singles"] = time.perf_counter() - t0
+
+    # 4. times: a farm cycle and update beside one seed's
+    t0 = time.perf_counter()
+    single = singles[0][0]
+    del single.learner.loss_and_grads, single.learner.update   # unwrap
+    del farm.learner.update
+    singles = None
+    g = torch.Generator(device="cuda").manual_seed(8)
+    batch = sample(single.replay, fa.batch_size, g)
+    idx = torch.randint(0, farm.replay.size, (S, fa.batch_size),
+                        generator=g, device="cuda")
+    fbatch = sample_stacked(farm.replay, idx)
+    times = {}
+    for name, cycle, update in (
+            ("single", single.train_cycle,
+             lambda: single.learner.update(batch)),
+            ("farm", farm.train_cycle, lambda: farm.learner.update(fbatch))):
+        update()
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        for _ in range(TIMED_UPDATES):
+            update()
+        end_ev.record()
+        end_ev.synchronize()
+        update_ms = start_ev.elapsed_time(end_ev) / TIMED_UPDATES
+        prof = profile_calls(update)
+        if not prof["launches"]:
+            raise AssertionError("torch.profiler saw no kernel launch in a "
+                                 f"{name} update")
+        steps = [0]
+
+        def counted():
+            steps[0] += int(np.sum(cycle()))
+
+        cycle_ms = time_calls(counted, FARM_TIMED_CYCLES)
+        times[name] = dict(update_ms=update_ms, cycle_ms=cycle_ms,
+                           env_steps_per_s=steps[0] / (cycle_ms / 1e3
+                                                       * FARM_TIMED_CYCLES),
+                           update_launches=prof["launches"],
+                           update_device_ms=prof["device_ms"],
+                           update_idle=1 - prof["device_ms"] / update_ms,
+                           fallbacks=prof["fallbacks"], ops=prof["ops"])
+    sops, fops = times["single"].pop("ops"), times["farm"].pop("ops")
+    per_seed = sorted((k for k, n in fops.items()
+                       if n >= 2 * sops.get(k, 0) and n >= S),
+                      key=lambda k: -fops[k])
+    times["ops_per_seed"] = [f"{k} x{fops[k]:.0f} (single {sops.get(k, 0):.0f})"
+                             for k in per_seed[:8]]
+    for name in ("single", "farm"):
+        x = times[name]
+        log(f"phase 8: [{smi}] {name}: update {x['update_ms']:.2f} ms "
+            f"({x['update_launches']:.0f} kernel launches, "
+            f"{x['update_device_ms']:.2f} ms device, idle share "
+            f"{x['update_idle']:.3f}); cycle {x['cycle_ms']:.1f} ms, "
+            f"{x['env_steps_per_s']:.0f} counted env-steps/s"
+            + (f"; batching-rule fallbacks {x['fallbacks']}"
+               if x["fallbacks"] else ""))
+    log(f"phase 8: farm / single: update x"
+        f"{times['farm']['update_ms'] / times['single']['update_ms']:.2f}, "
+        f"launches x{times['farm']['update_launches'] / times['single']['update_launches']:.2f}, "
+        f"env-steps/s x{times['farm']['env_steps_per_s'] / times['single']['env_steps_per_s']:.2f}; "
+        f"ops run more in the farm than one seed: {times['ops_per_seed']}")
+    out["times"] = times
+    del farm, single, batch, fbatch
+    out["phase_s"]["times"] = time.perf_counter() - t0
+
+    # 5. resume under --ckpt_replay, bitwise against an uninterrupted run
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for name, budgets in (("full", [FARM_RESUME_STEPS[1]]),
+                              ("resumed", list(FARM_RESUME_STEPS))):
+            rdir = os.path.join(ROOT, "build", f"chip_smoke_farm_{name}")
+            shutil.rmtree(rdir, ignore_errors=True)
+            for k, steps in enumerate(budgets):
+                f = train.main(FARM_RESUME_ARGV + [
+                    f"--exact_steps={steps}", f"--data_dir={rdir}"]
+                    + (["--load_model"] if k else []))
+            runs[name] = f.save_curves()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for k in ("success_rate", "Rewards", "steps", "constraints"):
+        if not np.array_equal(runs["full"][k], runs["resumed"][k]):
+            raise AssertionError(f"the resumed farm's {k} curve differs: "
+                                 f"{runs['resumed'][k].tolist()} against "
+                                 f"{runs['full'][k].tolist()}")
+    E = runs["full"]["success_rate"].shape[1]
+    out["resume"] = dict(evaluations=E, seconds=time.perf_counter() - t0)
+    log(f"phase 8: farm resume under --ckpt_replay ({S} seeds, 8 chips, "
+        f"stopped at {FARM_RESUME_STEPS[0]} steps, resumed to "
+        f"{FARM_RESUME_STEPS[1]}): {E} evaluations, curves bitwise equal to "
+        f"the uninterrupted run's")
+    out["phase_s"]["resume"] = time.perf_counter() - t0
+
+    # 6. the aux modules on the card
+    t0 = time.perf_counter()
+    env = make_env("dmfb", width=10, length=10, n_droplets=4, fov=9)
+    cpu = ParallelEnvShim(env, seed=7, device="cpu")
+    card = ParallelEnvShim(env, seed=7, device="cuda")
+    first = cpu.reset()
+    card.state = type(cpu.state)(*(x.cuda() for x in cpu.state))
+    rng = np.random.RandomState(0)
+    dmfb_step.launches = 0
+    for step in range(env.episode_limit):
+        acts = rng.randint(0, 5, size=4).tolist()
+        want, got = cpu.step(acts), card.step(acts)
+        if not (np.array_equal(np.stack(got[0]), np.stack(want[0]))
+                and got[1:] == want[1:]):
+            raise AssertionError(f"shim step {step}: card != CPU")
+        if all(want[2].values()):
+            break
+    shim_launches = dmfb_step.launches
+    if shim_launches != step + 1 or not np.array_equal(
+            np.stack(card.restart()), np.stack(first)):
+        raise AssertionError(f"the card shim launched the kernel "
+                             f"{shim_launches} times in {step + 1} steps")
+    cpu.restart()
+    frame = Renderer(env, u_size=20)
+    same_frame = np.array_equal(frame.draw(card.state), frame.draw(cpu.state))
+    picks = {}
+    for device in ("cpu", "cuda"):
+        aa = get_train_args(["dmfb", "--drop_num=4", "--fov=9",
+                             f"--device={device}"], pri=False)
+        aa.update_env_info(env.env_info())
+        agents = Agents(aa)
+        s = ParallelEnvShim(env, seed=1, device="cpu")
+        obs, last, acts = s.reset(), np.zeros((4, 5)), []
+        for _ in range(20):
+            step_acts = [agents.choose_action(obs[i], last[i], i, [1] * 5,
+                                              0.2) for i in range(4)]
+            last = np.eye(5)[step_acts]
+            obs = s.step(step_acts)[0]
+            acts.append(step_acts)
+        picks[device] = acts
+    if not same_frame or picks["cpu"] != picks["cuda"]:
+        raise AssertionError(f"card vs CPU: frame equal {same_frame}, "
+                             f"actions equal {picks['cpu'] == picks['cuda']}")
+    router = router_baseline.main([str(ROUTER_TASKS), "4"])
+    out["aux"] = dict(shim_steps=step + 1, shim_launches=shim_launches,
+                      router_success=router["value"], router=router["unit"])
+    log(f"phase 8: [{smi}] shim episode on the card == CPU over {step + 1} "
+        f"steps ({shim_launches} kernel launches at B = 1); Agents."
+        f"choose_action card == CPU over 20 steps x 4 agents; Renderer frame "
+        f"of the card state == CPU frame; MEDA staircase router "
+        f"{router['value']:.2f} success over {ROUTER_TASKS} 30x60-4d tasks "
+        f"({router['unit']})")
+    out["phase_s"]["aux"] = time.perf_counter() - t0
+    out["phase_s"]["total"] = time.perf_counter() - t8
+    log(f"phase 8: {out['phase_s']['total']:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1125,6 +1554,7 @@ def main() -> int:
 
     phase6 = trained_policies(smi)
     phase7 = meda_qmix(smi)
+    phase8 = seed_farm(smi)
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     log(smi)
@@ -1160,6 +1590,9 @@ def main() -> int:
         "no_obs_registers": main4[False][0]["registers"],
         "launches_qmix_eval": phase7["launches_qmix_eval"],
         "launches_qmix_train": phase7["launches_qmix_train"],
+        "launches_farm": phase8["train"]["launches"],
+        "launches_farm_rollout": phase8["train"]["launches_rollout"],
+        "farm_batch": phase8["train"]["batch"],
     }]}))
     log(json.dumps({"train": {
         "cycles": cycles, "updates": updates,
@@ -1172,6 +1605,7 @@ def main() -> int:
     log(json.dumps({"trained": {
         k: v for k, v in phase6.items() if k != "no_obs"}, "device": smi}))
     log(json.dumps({"meda_qmix": phase7, "device": smi}))
+    log(json.dumps({"farm": phase8, "device": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

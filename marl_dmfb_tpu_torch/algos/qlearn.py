@@ -30,6 +30,12 @@ form, because torch's own optimizers differ from optax's:
 The optimizer's counts are int32 tensors on the CPU, so the bias
 corrections and the schedule are computed on the host in float32 and no
 update waits for the device.
+
+The loss is a module, :class:`TDLoss`, over the eval and target nets;
+:func:`functional_loss` calls it on any parameter dicts, which is how the
+seed farm's :class:`StackedQLearner` takes the loss and gradients of S
+seeds' stacked parameters at once (``torch.func.vmap`` of
+``grad_and_value``; JAX ``seedfarm.py`` vmaps ``learn``).
 """
 
 from __future__ import annotations
@@ -40,12 +46,11 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from marl_dmfb_tpu_torch.models.networks import vdn_mix
-from marl_dmfb_tpu_torch.replay import ReplayState, sample
+from marl_dmfb_tpu_torch.models.networks import stackable, vdn_mix
+from marl_dmfb_tpu_torch.replay import ReplayState, sample, sample_stacked
 from marl_dmfb_tpu_torch.utils.platform import disable_tf32
 
 ADAM_BETAS = (0.9, 0.99)   # JAX qlearn.py:78 (reference vdn.py:67-68)
@@ -101,12 +106,28 @@ class Optimizer:
         return _f32(self.lr) * decayed
 
     @torch.no_grad()
-    def step(self, params: dict, grads: dict, state: dict) -> dict:
+    def step(self, params: dict, grads: dict, state: dict,
+             stacked: bool = False) -> dict:
         """Clip ``grads`` by their global norm, take one step of the
-        parameters in place and return the new state."""
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        parameters in place and return the new state.
+
+        ``stacked`` tensors carry S independent seeds on their first axis
+        (the seed farm): each seed's gradients are clipped by their own
+        global norm, over every axis but the first, and the rest of the
+        step is elementwise; the counts are shared, as the seeds update in
+        lockstep."""
+        if stacked:
+            def norm_of(g):   # (S,): each seed's squared norm
+                return torch.sum(g * g, dim=tuple(range(1, g.dim())))
+            g_norm = torch.sqrt(sum(norm_of(g) for g in grads.values()))
+            per_seed = lambda x, g: x.view(-1, *[1] * (g.dim() - 1))
+        else:
+            g_norm = torch.sqrt(sum(torch.sum(g * g)
+                                    for g in grads.values()))
+            per_seed = lambda x, g: x
         keep = g_norm < self.max_norm
-        grads = {k: torch.where(keep, g, g / g_norm * self.max_norm)
+        grads = {k: torch.where(per_seed(keep, g), g,
+                                g / per_seed(g_norm, g) * self.max_norm)
                  for k, g in grads.items()}
         state = dict(state)
         if "schedule_count" in state:
@@ -195,6 +216,85 @@ def _flat(tree: dict) -> dict:
             for part, d in tree.items() for name, v in d.items()}
 
 
+def _one_hot(u: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(u, n).float()`` by comparison: ``F.one_hot`` reads the
+    values' range, which ``torch.func.vmap`` cannot batch."""
+    return (u[..., None] == torch.arange(n, device=u.device)).float()
+
+
+class TDLoss(nn.Module):
+    """The masked TD loss of a minibatch (JAX qlearn.py:234-273) over the
+    eval nets (the agent, and under QMIX the mixer) and their target
+    copies, which are its submodules ``net``, ``mixer``, ``target_net`` and
+    ``target_mixer``.  :func:`functional_loss` calls it on other
+    parameters."""
+
+    def __init__(self, args, net: nn.Module, mixer: Optional[nn.Module],
+                 target_net: nn.Module, target_mixer: Optional[nn.Module]):
+        super().__init__()
+        self.args = args
+        self.net, self.mixer = net, mixer
+        self.target_net, self.target_mixer = target_net, target_mixer
+
+    def build_inputs(self, batch: dict, u_onehot: torch.Tensor):
+        """Eval stream: ``o_ext[:, :T]`` with the previous step's action
+        one-hot (zeros at t = 0); target stream: ``o_ext[:, 1:]`` with this
+        step's (JAX qlearn.py:216-232)."""
+        o_ext = batch["o_ext"].float()
+        eval_obs, tgt_obs = o_ext[:, :-1], o_ext[:, 1:]
+        if not self.args.last_action:
+            return eval_obs, tgt_obs
+        prev_u = torch.cat(
+            [torch.zeros_like(u_onehot[:, :1]), u_onehot[:, :-1]], dim=1)
+        return (torch.cat([eval_obs, prev_u], dim=-1),
+                torch.cat([tgt_obs, u_onehot], dim=-1))
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        """The loss of a minibatch in the ``(b, T, N, .)`` views."""
+        H, A = self.args.rnn_hidden_dim, self.args.n_actions
+        remat = bool(self.args.remat)
+        u = batch["u"].long()                          # (b, T, N, 1)
+        r = batch["r"].float()                         # (b, T, 1)
+        terminated = batch["terminated"].float()
+        mask = 1.0 - batch["padded"].float()           # (b, T, 1)
+        # the one-hots are zero on padded steps, and every action is
+        # available on a live step and none on a padded one
+        u_onehot = _one_hot(u[..., 0], A) * mask[..., None]
+        avail_next = mask[..., None].expand(u_onehot.shape)
+        eval_in, tgt_in = self.build_inputs(batch, u_onehot)
+        q_evals = unroll(self.net, eval_in, H, remat)
+        with torch.no_grad():
+            q_targets = unroll(self.target_net, tgt_in, H)
+        q_e = q_evals.gather(3, u).squeeze(3)          # (b, T, N)
+        q_t = torch.where(avail_next == 0.0, MASKED_Q, q_targets).amax(3)
+        if self.mixer is None:
+            q_tot_e, q_tot_t = vdn_mix(q_e), vdn_mix(q_t)
+        else:
+            s_ext = batch["s_ext"].float()
+            q_tot_e = self.mixer(q_e, s_ext[:, :-1])
+            with torch.no_grad():
+                q_tot_t = self.target_mixer(q_t, s_ext[:, 1:])
+        targets = r + self.args.gamma * q_tot_t * (1.0 - terminated)
+        td = (targets.detach() - q_tot_e) * mask
+        return torch.sum(td ** 2) / torch.sum(mask)
+
+
+def functional_loss(loss: TDLoss):
+    """``loss`` as a function ``(params, target_params, batch) -> loss`` of
+    parameter dicts in :attr:`QLearner.all_params`' names (the agent's
+    names, the mixer's prefixed ``mixer.``), through
+    ``torch.func.functional_call``: the form ``torch.func.grad`` and
+    ``vmap`` take."""
+    def call(params: dict, target_params: dict, batch: dict):
+        named = {}
+        for prefix, tree in (("", params), ("target_", target_params)):
+            for k, v in tree.items():
+                named[prefix + (k if k.startswith(MIXER) else "net." + k)] = v
+        return torch.func.functional_call(loss, named, (batch,))
+
+    return call
+
+
 class QLearner:
     """The eval nets (the agent, trained in place, which the rollout may
     share, and under QMIX the mixer), their target copies, the optimizer
@@ -225,6 +325,8 @@ class QLearner:
         if mixer is not None:
             self.all_params.update(
                 {MIXER + k: v for k, v in mixer.named_parameters()})
+        self.loss_module = TDLoss(args, net, mixer, self.target_net,
+                                  self.target_mixer)
         self.opt = make_optimizer(args)
         self.opt_state = self.opt.init(self.all_params)
         self.train_step = 0
@@ -235,49 +337,10 @@ class QLearner:
         if self.mixer is not None:
             yield self.mixer, self.target_mixer
 
-    # ------------------------------------------------------------------
-    def build_inputs(self, batch: dict, u_onehot: torch.Tensor):
-        """Eval stream: ``o_ext[:, :T]`` with the previous step's action
-        one-hot (zeros at t = 0); target stream: ``o_ext[:, 1:]`` with this
-        step's (JAX qlearn.py:216-232)."""
-        o_ext = batch["o_ext"].float()
-        eval_obs, tgt_obs = o_ext[:, :-1], o_ext[:, 1:]
-        if not self.args.last_action:
-            return eval_obs, tgt_obs
-        prev_u = torch.cat(
-            [torch.zeros_like(u_onehot[:, :1]), u_onehot[:, :-1]], dim=1)
-        return (torch.cat([eval_obs, prev_u], dim=-1),
-                torch.cat([tgt_obs, u_onehot], dim=-1))
-
     def loss(self, batch: dict) -> torch.Tensor:
         """The masked TD loss of a minibatch in the ``(b, T, N, .)`` views
         (JAX qlearn.py:234-273)."""
-        H, A = self.args.rnn_hidden_dim, self.args.n_actions
-        remat = bool(self.args.remat)
-        u = batch["u"].long()                          # (b, T, N, 1)
-        r = batch["r"].float()                         # (b, T, 1)
-        terminated = batch["terminated"].float()
-        mask = 1.0 - batch["padded"].float()           # (b, T, 1)
-        # the one-hots are zero on padded steps, and every action is
-        # available on a live step and none on a padded one
-        u_onehot = F.one_hot(u[..., 0], A).float() * mask[..., None]
-        avail_next = mask[..., None].expand(u_onehot.shape)
-        eval_in, tgt_in = self.build_inputs(batch, u_onehot)
-        q_evals = unroll(self.net, eval_in, H, remat)
-        with torch.no_grad():
-            q_targets = unroll(self.target_net, tgt_in, H)
-        q_e = q_evals.gather(3, u).squeeze(3)          # (b, T, N)
-        q_t = torch.where(avail_next == 0.0, MASKED_Q, q_targets).amax(3)
-        if self.mixer is None:
-            q_tot_e, q_tot_t = vdn_mix(q_e), vdn_mix(q_t)
-        else:
-            s_ext = batch["s_ext"].float()
-            q_tot_e = self.mixer(q_e, s_ext[:, :-1])
-            with torch.no_grad():
-                q_tot_t = self.target_mixer(q_t, s_ext[:, 1:])
-        targets = r + self.args.gamma * q_tot_t * (1.0 - terminated)
-        td = (targets.detach() - q_tot_e) * mask
-        return torch.sum(td ** 2) / torch.sum(mask)
+        return self.loss_module(batch)
 
     def loss_and_grads(self, batch: dict):
         """The loss and its gradients, keyed as :attr:`all_params` (the
@@ -344,6 +407,137 @@ class QLearner:
             for part, params in self._named(target).items():
                 for k, p in params.items():
                     p.copy_(tree[key][part][k])
+        device = next(iter(self.params.values())).device
+        self.opt_state = {
+            k: ({n: t.to(device).clone() for n, t in _flat(v).items()}
+                if isinstance(v, dict) else v.cpu().to(torch.int32))
+            for k, v in tree["opt_state"].items()}
+        self.train_step = int(tree["train_step"])
+
+
+REMAT_WITH_SEEDS = (
+    "--remat --vmap_seeds: torch.utils.checkpoint does not compose with "
+    "torch.func.grad (saved-tensor hooks; the reentrant form lacks "
+    "setup_context), ROADMAP.md Queue 3 item 4; train the seeds without "
+    "--remat")
+
+
+class StackedQLearner:
+    """S independent learners of one configuration, updated in lockstep as
+    one program (the seed farm's; JAX ``seedfarm.py`` vmaps ``learn``).
+
+    ``params`` holds every seed's parameters stacked on a first axis of S,
+    in :attr:`QLearner.all_params`' flat names.  An update takes the loss
+    and gradients of all seeds at once, ``torch.func.vmap`` of
+    ``torch.func.grad_and_value`` of :func:`functional_loss` over the
+    stacked parameters and S minibatches, so it launches about as many
+    kernels as one seed's update; the optimizer clips each seed by its own
+    global norm (``Optimizer.step(stacked=True)``).  The template modules
+    ``net`` and ``mixer`` give the loss its structure only (their GRU cells
+    in the stacked form, :func:`stackable`); their own parameters are not
+    used.  Seed i's state is what a :class:`QLearner` of seed i's weights
+    would hold after the same minibatches, to float32 rounding (the
+    batched products and convolutions sum in another order)."""
+
+    def __init__(self, args, net: nn.Module, mixer: Optional[nn.Module],
+                 params: dict):
+        if args.alg not in ("vdn", "qmix"):
+            raise ValueError(f"unknown --alg {args.alg!r}: vdn or qmix")
+        if args.remat:
+            raise NotImplementedError(REMAT_WITH_SEEDS)
+        disable_tf32()
+        self.args = args
+        stackable(net)
+        self.loss_module = TDLoss(
+            args, net, mixer, stackable(copy.deepcopy(net)),
+            None if mixer is None else copy.deepcopy(mixer))
+        self.params = params
+        self.target_params = {k: v.clone() for k, v in params.items()}
+        self.n_seeds = next(iter(params.values())).shape[0]
+        self.opt = make_optimizer(args)
+        self.opt_state = self.opt.init(params)
+        self.train_step = 0
+        self._grad_and_loss = torch.func.vmap(torch.func.grad_and_value(
+            functional_loss(self.loss_module)))
+
+    def agent_params(self, tree: Optional[dict] = None) -> dict:
+        """The agent's entries of ``tree`` (default :attr:`params`)."""
+        tree = self.params if tree is None else tree
+        return {k: v for k, v in tree.items() if not k.startswith(MIXER)}
+
+    def loss_and_grads(self, batch: dict):
+        """Each seed's loss (S,) and gradients on its minibatch (each leaf
+        of ``batch`` is (S, b, ...))."""
+        grads, loss = self._grad_and_loss(self.params, self.target_params,
+                                          batch)
+        return loss, grads
+
+    def update(self, batch: dict) -> torch.Tensor:
+        """One lockstep step of every seed on its minibatch, the target
+        sync as :meth:`QLearner.update`'s; returns the losses (S,) before
+        the step."""
+        loss, grads = self.loss_and_grads(batch)
+        self.opt_state = self.opt.step(self.params, grads, self.opt_state,
+                                       stacked=True)
+        self.train_step += 1
+        if self.train_step % self.args.target_update_cycle == 0:
+            with torch.no_grad():
+                for k, v in self.params.items():
+                    self.target_params[k].copy_(v)
+        return loss.detach()
+
+    def learn_many(self, replay: ReplayState, n_updates: int,
+                   generators, idx: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+        """``n_updates`` sample-and-update steps of every seed on its ring
+        of ``replay`` (a seed axis first, ``replay.init_replay(seeds=S)``):
+        seed i draws its minibatch from ``generators[i]`` as a
+        :class:`QLearner` does from its generator, or takes ``idx[k, i]``.
+        Returns each seed's mean loss (S,)."""
+        losses = []
+        n = self.args.batch_size
+        for k in range(n_updates):
+            if idx is None:
+                device = replay.data["u"].device
+                ks = torch.stack([torch.randint(0, max(replay.size, 1), (n,),
+                                                generator=g, device=device)
+                                  for g in generators])
+            else:
+                ks = idx[k]
+            losses.append(self.update(sample_stacked(replay, ks)))
+        return torch.stack(losses).mean(dim=0)
+
+    # ------------------------------------------------------------------
+    def state(self) -> dict:
+        """The stacked state in :meth:`QLearner.state`'s layout, each leaf
+        with the seed axis first but the optimizer's counts (copies)."""
+        nest = lambda flat: {part: {k: v.detach().clone()
+                                    for k, v in d.items()}
+                             for part, d in _nest(flat).items()}
+        return {
+            "params": nest(self.params),
+            "target_params": nest(self.target_params),
+            "opt_state": {k: (nest(v) if isinstance(v, dict) else v.clone())
+                          for k, v in self.opt_state.items()},
+            "train_step": torch.tensor(self.train_step, dtype=torch.int32),
+        }
+
+    def seed_state(self, i: int) -> dict:
+        """Seed ``i``'s state, laid out as :meth:`QLearner.state`'s (the
+        counts, 0-dim, are every seed's)."""
+        def pick(tree):
+            if isinstance(tree, dict):
+                return {k: pick(v) for k, v in tree.items()}
+            return tree[i].clone() if tree.dim() else tree
+        return pick(self.state())
+
+    @torch.no_grad()
+    def load_state(self, tree: dict):
+        """Take a tree laid out as :meth:`state`'s (checked by name first)."""
+        for key, dst in (("params", self.params),
+                         ("target_params", self.target_params)):
+            for k, v in _flat(tree[key]).items():
+                dst[k].copy_(v)
         device = next(iter(self.params.values())).device
         self.opt_state = {
             k: ({n: t.to(device).clone() for n, t in _flat(v).items()}

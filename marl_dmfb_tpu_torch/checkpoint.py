@@ -31,6 +31,13 @@ from marl_dmfb_tpu_torch.models.convert import (from_flax_learner_state,
                                                 from_flax_tree)
 
 
+def model_dir(args) -> str:
+    """``<data_dir>/<model_dir>/<alg>/fov<fov>``, where a run's
+    checkpoints go."""
+    return os.path.join(args.data_dir, args.model_dir.lstrip("./"),
+                        args.alg, f"fov{args.fov}")
+
+
 def model_state_path(args, tag, write: bool = False) -> str:
     """The checkpoint file for a tag, in the JAX package's scheme
     (``<data_dir>/<model_dir>/<alg>/fov<fov>/<run>_<tag>_state``): "final"
@@ -40,12 +47,10 @@ def model_state_path(args, tag, write: bool = False) -> str:
     exported to numpy adds ``.npz``.  For reading, the ``.pt`` is taken
     where there is one, else an ``.npz`` that exists; ``write`` names the
     ``.pt``."""
-    model_dir = os.path.join(args.data_dir, args.model_dir.lstrip("./"),
-                             args.alg, f"fov{args.fov}")
     name = (f"{tag}_state" if "_" in str(tag)
             else f"{args.ith_run}_{tag}_state")
-    pt = os.path.join(model_dir, name + ".pt")
-    npz = os.path.join(model_dir, name + ".npz")
+    pt = os.path.join(model_dir(args), name + ".pt")
+    npz = os.path.join(model_dir(args), name + ".npz")
     if write or os.path.isfile(pt) or not os.path.isfile(npz):
         return pt
     return npz
@@ -58,6 +63,13 @@ def load_model_tag(args) -> str:
     if tag.startswith(f"{args.ith_run}_"):
         tag = tag[len(f"{args.ith_run}_"):]
     return tag.rstrip("_")
+
+
+def to_cpu(tree):
+    """A tree with every tensor leaf detached onto the CPU."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
 
 
 def save(path: str, tree: dict) -> None:

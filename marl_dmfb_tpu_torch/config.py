@@ -14,9 +14,8 @@ Deviations from the JAX CLI:
 * evaluation loads a checkpoint, as the JAX CLI does (``--load_model`` is
   on by default and no flag turns it off): the port's own ``.pt``, or a
   JAX checkpoint exported to ``.npz`` by ``tools/export_flax_npz.py``
-  (``checkpoint.py``).  ``--show``/``--show_save`` raise
-  ``NotImplementedError``.
-* the TPU flags that the port does not implement yet are parsed and raise
+  (``checkpoint.py``).
+* the multi-device flags and ``--fused_streams`` are parsed and raise
   ``NotImplementedError`` when set away from their default (see
   :func:`refuse_unported`); ``--scan_unroll`` is accepted and ignored.
 """
@@ -282,13 +281,13 @@ def refuse_unported(args: Args) -> Args:
     implement yet, naming the ROADMAP.md item that will."""
     multi_gpu = "ROADMAP.md Queue 1 item 11 (multi-GPU)"
     if args.mesh not in ("auto", "off"):
+        if args.vmap_seeds > 1:   # JAX train.py:39-48
+            raise SystemExit("--vmap_seeds runs on one device; use "
+                             "--mesh=off")
         raise NotImplementedError(
             f"--mesh {args.mesh}: {multi_gpu}; use --mesh auto or off")
     if args.local_sampling:
         raise NotImplementedError(f"--local_sampling: {multi_gpu}")
-    if args.vmap_seeds > 1:
-        raise NotImplementedError(
-            "--vmap_seeds: ROADMAP.md Queue 1 item 10 (seed farm)")
     if args.fused_streams:
         raise NotImplementedError(
             "--fused_streams: ROADMAP.md Queue 4 (learner speed)")
@@ -311,7 +310,8 @@ def get_train_args(argv=None, pri: bool = True) -> Args:
     p.add_argument("--local_sampling", default=False, action="store_true",
                    help="per-device replay sampling (not ported yet)")
     p.add_argument("--vmap_seeds", type=int, default=0,
-                   help="seed farm (not ported yet)")
+                   help="train K independent seeds (seed, seed + 1, ...) "
+                        "in lockstep as one program (the seed farm)")
     p.add_argument("--ckpt_replay", default=False, action="store_true",
                    help="checkpoints also hold the replay ring and the "
                         "training chips, for a resume identical to an "

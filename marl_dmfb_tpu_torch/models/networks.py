@@ -63,17 +63,33 @@ class TorchGRUCell(nn.GRUCell):
     """torch's GRUCell (r/z/n gates, reset inside the candidate's hidden
     branch); in ``compute_dtype`` the operands of the two gate products are
     rounded there and the gates computed in float32 (JAX
-    ``TorchGRUCell``)."""
+    ``TorchGRUCell``).
+
+    ``stacked`` (set by :func:`stackable`) computes the float32 cell from
+    its two gate products and elementwise ops, in the order of torch's
+    fused cell, instead of calling it: ``aten::gru_cell`` has no
+    ``torch.func.vmap`` batching rule, so under the seed farm's vmap over
+    stacked parameters it would run once per seed."""
 
     def __init__(self, input_size: int, hidden_size: int,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__(input_size, hidden_size)
         self.compute_dtype = compute_dtype
+        self.stacked = False
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt is None:
-            return super().forward(x, h)
+            if not self.stacked:
+                return super().forward(x, h)
+            gi = F.linear(x, self.weight_ih, self.bias_ih)
+            gh = F.linear(h, self.weight_hh, self.bias_hh)
+            i_r, i_z, i_n = gi.chunk(3, dim=-1)
+            h_r, h_z, h_n = gh.chunk(3, dim=-1)
+            r = torch.sigmoid(h_r + i_r)
+            z = torch.sigmoid(h_z + i_z)
+            n = torch.tanh(i_n + h_n * r)
+            return (h - n) * z + n
         gi = _linear(x, self.weight_ih, dt) + self.bias_ih
         gh = _linear(h, self.weight_hh, dt) + self.bias_hh
         i_r, i_z, i_n = gi.chunk(3, dim=-1)
@@ -194,6 +210,38 @@ class CRNNAgent(nn.Module):
     def forward(self, inputs: torch.Tensor, h: torch.Tensor):
         h = self.gru(self.encode(inputs), h)
         return self.fc1(h), h
+
+
+def stackable(module: nn.Module) -> nn.Module:
+    """``module`` with every GRU cell in its ``stacked`` form, so that
+    ``torch.func.vmap`` over stacked parameters batches each of its
+    operations across the seeds; returns the module."""
+    for m in module.modules():
+        if isinstance(m, TorchGRUCell):
+            m.stacked = True
+    return module
+
+
+class StackedNet:
+    """An agent net called on S stacked parameter sets at once (the seed
+    farm's rollouts): ``params`` maps the net's parameter names to tensors
+    with a first axis of S, read when called, so updates in place show.
+    Rows are seed-major, ``(S*R, .)``: seed i's R rows run through its
+    parameters, by ``torch.func.vmap`` of ``functional_call`` over the
+    seeds (one batched operation for each of the net's)."""
+
+    def __init__(self, net: nn.Module, params: dict, n_seeds: int):
+        self.params = params
+        self.n_seeds = n_seeds
+        net = stackable(net)
+        self._forward = torch.func.vmap(
+            lambda p, x, h: torch.func.functional_call(net, p, (x, h)))
+
+    def __call__(self, x: torch.Tensor, h: torch.Tensor):
+        S = self.n_seeds
+        q, h = self._forward(self.params, x.reshape(S, -1, x.shape[-1]),
+                             h.reshape(S, -1, h.shape[-1]))
+        return q.flatten(0, 1), h.flatten(0, 1)
 
 
 def build_agent_net(args) -> nn.Module:

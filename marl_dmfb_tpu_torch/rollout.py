@@ -9,7 +9,10 @@ are the JAX package's:
   steps are stored zeroed with ``padded=1`` and ``terminated=1``;
 * the team reward is the mean over agents; ``terminated`` is all agents;
 * epsilon anneals by ``anneal_per_step * live_frac`` per step, so ended
-  episodes stop consuming schedule, and the final value is returned;
+  episodes stop consuming schedule, and the final value is returned; an
+  epsilon of shape (S,) (the seed farm's) splits the chips into S
+  seed-major groups, each exploring with and annealing its own epsilon by
+  its own live fraction;
 * failed episodes count as ``episode_limit`` steps;
 * ``o_ext`` holds T+1 observations (o_0 .. o_T), and with ``with_state``
   (QMIX) ``s_ext`` the T+1 global states, int8, each written as its step
@@ -30,7 +33,7 @@ from marl_dmfb_tpu_torch.utils.platform import disable_tf32
 class RolloutResult(NamedTuple):
     episodes: dict              # each (B, T, ...) — replay-buffer layout
     env_states: object          # batched env state (post-episode)
-    epsilon: torch.Tensor       # () f32 — annealed epsilon
+    epsilon: torch.Tensor       # () f32 — annealed epsilon; (S,) per seed
     # per-episode metrics, each (B,)
     reward: torch.Tensor
     steps: torch.Tensor
@@ -65,9 +68,9 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
     update its parameters in place between rollouts.  Its input ends with
     the last action's one-hot when ``last_action`` is on.  Randomness comes
     from ``generator`` (on the states' device) unless ``noise`` gives it,
-    which lets tests replay the JAX package's draws.  ``with_state`` adds
-    the episodes' global states, ``s_ext`` (JAX rollout.py:191-193,
-    239-243)."""
+    which lets tests replay the JAX package's draws, and the seed farm
+    give each seed its own generator's.  ``with_state`` adds the episodes'
+    global states, ``s_ext`` (JAX rollout.py:191-193, 239-243)."""
     disable_tf32()
     N, A, T = env.n_agents, env.n_actions, env.episode_limit
 
@@ -91,6 +94,19 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
         eps = torch.as_tensor(epsilon, **f32)
         anneal = torch.as_tensor(anneal_per_step, **f32)
         min_eps = torch.as_tensor(min_epsilon, **f32)
+        seeds = eps.shape[0] if eps.dim() else 0
+        if seeds:   # each chip explores with its seed's epsilon
+            def live_frac(live):
+                return live.view(seeds, -1).float().mean(dim=1)
+
+            def chip_eps(eps):
+                return eps.repeat_interleave(B // seeds)[:, None]
+        else:
+            def live_frac(live):
+                return live.float().mean()
+
+            def chip_eps(eps):
+                return eps
 
         obs = obs0
         last = torch.zeros((B, N, A), **f32)
@@ -113,7 +129,7 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
                                            device=device)
                 else:
                     rand_a, explore_u = noise.rand_a[t], noise.explore_u[t]
-                a = torch.where(explore_u < eps, rand_a, a)
+                a = torch.where(explore_u < chip_eps(eps), rand_a, a)
             uniforms = (torch.rand((B, N), generator=generator, device=device)
                         if noise is None else noise.env_uniforms[t])
             new_states, out = env.step_core(states, a, uniforms)
@@ -134,8 +150,7 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
             metrics["constraints"].append(torch.where(live, out.constraints, 0))
             metrics["success"].append(torch.where(live, out.success, 0))
             if not greedy:
-                eps = torch.maximum(
-                    min_eps, eps - anneal * live.float().mean())
+                eps = torch.maximum(min_eps, eps - anneal * live_frac(live))
             # obs/last-action carries of ended episodes need no freezing:
             # everything stored from them is masked by `live`
             live = live & ~out.terminated

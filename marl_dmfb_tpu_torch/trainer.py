@@ -57,10 +57,19 @@ def restore_net_config(args: Args, tag) -> Args:
     return args
 
 
-def _cpu(tree):
-    if isinstance(tree, dict):
-        return {k: _cpu(v) for k, v in tree.items()}
-    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+def curve_dir(args: Args) -> str:
+    """Where a run's curves go (reference train.py:145-158)."""
+    return os.path.join(
+        args.data_dir, args.result_dir.lstrip("./"), args.alg,
+        f"fov{args.fov}",
+        f"{args.width}by{args.length}-{args.drop_num}d{args.block_num}b")
+
+
+def curve_prefix(args: Args) -> str:
+    """The reference's prefix of the curves' file names
+    (train.py:145-158)."""
+    return (f"{args.alg}_env({args.width},{args.length},{args.drop_num},"
+            f"{args.block_num},{args.fov},{args.stall})")
 
 
 def _named(net: torch.nn.Module, mixer=None) -> dict:
@@ -145,10 +154,7 @@ class Trainer:
         self.losses = []          # mean loss of each cycle (device tensors)
         self.n_cycles = 0
 
-        self.save_path = os.path.join(
-            args.data_dir, args.result_dir.lstrip("./"), args.alg,
-            f"fov{args.fov}",
-            f"{args.width}by{args.length}-{args.drop_num}d{args.block_num}b")
+        self.save_path = curve_dir(args)
 
     # ------------------------------------------------------------------
     def evaluate(self) -> dict:
@@ -185,7 +191,7 @@ class Trainer:
         if self.learner is None:
             raise RuntimeError("Trainer was built with eval_only=True")
         path = checkpoint.model_state_path(self.args, tag, write=True)
-        checkpoint.save(path, _cpu(self._tree()))
+        checkpoint.save(path, checkpoint.to_cpu(self._tree()))
         return path
 
     def _set_params(self, params: dict, target: dict):
@@ -392,10 +398,8 @@ class Trainer:
     def save_curves(self):
         """The curves as ``.npy`` files with the reference's names
         (train.py:145-158)."""
-        a = self.args
-        prefix = (f"{a.alg}_env({a.width},{a.length},{a.drop_num},"
-                  f"{a.block_num},{a.fov},{a.stall})")
-        num = a.ith_run
+        prefix = curve_prefix(self.args)
+        num = self.args.ith_run
         os.makedirs(self.save_path, exist_ok=True)
         for name, series in [
             (f"{prefix}Rewards_{num}", self.episode_rewards),

@@ -147,11 +147,23 @@ def test_evaluate_runs_on_cpu_when_asked():
 
 
 @pytest.mark.parametrize("flag", ["--show", "--show_save"])
-def test_unported_evaluate_options_raise(flag):
+def test_unported_evaluate_options_raise(flag, tmp_path, monkeypatch):
+    """The rendering options were refused until the renderer was ported;
+    now they render the evaluation (a window without a display under
+    SDL's dummy video output, a video where the data dir is) and return its
+    metrics."""
+    import shutil
+
     from marl_dmfb_tpu_torch import evaluate
 
-    with pytest.raises(NotImplementedError):
-        evaluate.main(["dmfb", "--evaluate_task=2", "--device=cpu", flag])
+    pytest.importorskip("pygame" if flag == "--show" else "cv2")
+    monkeypatch.setenv("SDL_VIDEODRIVER", "dummy")
+    shutil.copytree(POLICY, tmp_path, dirs_exist_ok=True)
+    m = evaluate.main(["dmfb", "--evaluate_task=2", "--device=cpu", flag,
+                       f"--data_dir={tmp_path}"])
+    assert 0.0 <= m["success_rate"] <= 1.0
+    assert len(m["per_episode"]["success"]) == 2
+    assert (tmp_path / "video").exists() == (flag == "--show_save")
 
 
 def test_evaluate_load_model_without_checkpoint_raises(tmp_path):

@@ -53,6 +53,14 @@ def test_train_defaults_to_cuda_and_raises_without_it(tmp_path):
 @pytest.mark.parametrize("flag", [
     "--mesh=4", "--local_sampling", "--vmap_seeds=2", "--fused_streams"])
 def test_unported_train_flags_raise(flag):
+    if flag == "--vmap_seeds=2":
+        # the seed farm is ported; on a device mesh it is not, and exits as
+        # JAX train.py:39-48 does
+        assert tconfig.get_train_args(["dmfb", flag],
+                                      pri=False).vmap_seeds == 2
+        with pytest.raises(SystemExit, match="--mesh=off"):
+            tconfig.get_train_args(["dmfb", flag, "--mesh=4"], pri=False)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tconfig.get_train_args(["dmfb", flag], pri=False)
 

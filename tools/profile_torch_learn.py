@@ -2,6 +2,7 @@
 """Where the time of the PyTorch port's training cycle goes, on one GPU.
 
     python3 tools/profile_torch_learn.py [--envs 64] [--updates 8] [--top 12]
+        [--seeds S]
 
 Builds the trainer of ``python -m marl_dmfb_tpu_torch.train dmfb
 --drop_num=4 --fov=9 --n_parallel_envs=<envs>`` (full width: 24 conv
@@ -18,6 +19,9 @@ cycles, and prints the card's name and power limit and, each from a
 The profiler slows the host, so each window is also timed without it
 (host clock, ending in a synchronize), and the idle share is given against
 both walls.
+
+With ``--seeds S`` (S > 1) the same is done for the seed farm of S seeds
+(``--vmap_seeds=S``): a farm cycle, and farm updates on S minibatches.
 
 Writes nothing: the trainer runs cycles, not ``run``, so it saves no
 checkpoint or curve.
@@ -37,7 +41,8 @@ sys.path.insert(0, ROOT)
 
 from marl_dmfb_tpu_torch.config import (get_train_args,  # noqa: E402
                                         make_env_from_args)
-from marl_dmfb_tpu_torch.replay import sample  # noqa: E402
+from marl_dmfb_tpu_torch.parallel.seedfarm import SeedFarm  # noqa: E402
+from marl_dmfb_tpu_torch.replay import sample, sample_stacked  # noqa: E402
 from marl_dmfb_tpu_torch.trainer import Trainer  # noqa: E402
 from marl_dmfb_tpu_torch.utils.platform import select_device  # noqa: E402
 
@@ -86,6 +91,8 @@ def main(argv=None):
     ap.add_argument("--envs", type=int, default=64)
     ap.add_argument("--updates", type=int, default=8)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--seeds", type=int, default=1,
+                    help="profile the seed farm of this many seeds")
     opts = ap.parse_args(argv)
 
     select_device("cuda")
@@ -95,22 +102,32 @@ def main(argv=None):
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    args = get_train_args(
-        ["dmfb", "--drop_num=4", "--fov=9", f"--n_parallel_envs={opts.envs}"],
-        pri=False)
-    trainer = Trainer(make_env_from_args(args), args)
+    argv = ["dmfb", "--drop_num=4", "--fov=9", f"--n_parallel_envs={opts.envs}"]
+    farm = opts.seeds > 1
+    if farm:
+        argv.append(f"--vmap_seeds={opts.seeds}")
+    args = get_train_args(argv, pri=False)
+    env = make_env_from_args(args)
+    trainer = SeedFarm(env, args, opts.seeds) if farm else Trainer(env, args)
     for _ in range(2):
         trainer.train_cycle()
-    print(f"[{smi}] train cycle, B={trainer.B}, "
+    what = f"farm of {opts.seeds} seeds, " if farm else ""
+    print(f"[{smi}] {what}train cycle, B={trainer.B}, "
           f"{trainer.updates_per_rollout} updates at batch "
           f"{args.batch_size}")
     report(trainer.train_cycle, 1, "cycle", opts.top)
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    batch = sample(trainer.replay, args.batch_size, g)
+    if farm:
+        idx = torch.randint(0, trainer.replay.size,
+                            (opts.seeds, args.batch_size), generator=g,
+                            device="cuda")
+        batch = sample_stacked(trainer.replay, idx)
+    else:
+        batch = sample(trainer.replay, args.batch_size, g)
     trainer.learner.update(batch)
-    print(f"[{smi}] learner update, batch {args.batch_size} episodes x "
-          f"{args.n_agents} agents, T = {args.episode_limit}")
+    print(f"[{smi}] {what}learner update, batch {args.batch_size} episodes "
+          f"x {args.n_agents} agents, T = {args.episode_limit}")
     report(lambda: trainer.learner.update(batch), opts.updates, "update",
            opts.top)
 
