@@ -70,11 +70,27 @@ Phases, each printing its seconds:
    equal an uninterrupted run's bitwise (cuDNN's deterministic algorithms
    on); the PettingZoo shim's episode on the card against the CPU's,
    ``Agents.choose_action`` and a ``Renderer`` frame of a card state
-   against the CPU's; and the MEDA staircase router on 100 tasks.
+   against the CPU's; and the MEDA staircase router on 100 tasks;
+9. data parallelism (``--mesh``) at the main config's widths (B = 64 chips
+   over the ranks, batch 128, replay 5000), ``MESH_CYCLES`` cycles each,
+   every rank a ``torch.multiprocessing`` child that imports no JAX: (a)
+   one rank under NCCL, which puts the process group's all-reduces on the
+   card; (b) two ranks on the one card under gloo with CUDA tensors (NCCL
+   refuses two ranks on one device), with the global ring and with
+   ``--local_sampling``; (c) two ranks under NCCL on two cards, where two
+   are visible (else a line says it was not run).  Every global-ring run
+   is held to the same run on one device (counted steps, epsilon and the
+   ring's rows exactly, the losses of the first ``LEARN_UPDATES`` updates
+   within ``LOSS_RTOL`` and the params after them within ``PARAM_ATOL``
+   outside noise gradients; over a cycle's 32 Adam updates two float32
+   summing orders drift further, which is printed); every run keeps its
+   params bitwise alike on its ranks and
+   launches the kernel T times a cycle on each rank at B / n chips; ms per
+   cycle and each rank's ring bytes are printed.
 
 The kernel JSON line (the kernel's numbers), a training JSON line, a
-trained-policies JSON line, a MEDA/QMIX JSON line and a farm JSON line come
-before the last,
+trained-policies JSON line, a MEDA/QMIX JSON line, a farm JSON line and a
+mesh JSON line come before the last,
 ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is non-zero and no result line is printed.  Exits
 non-zero at once where CUDA is unavailable.  Writes nothing but the kernel
@@ -194,6 +210,15 @@ FARM_RESUME_ARGV = ["dmfb", "--drop_num=4", "--fov=9", f"--vmap_seeds={FARM_S}",
 FARM_RESUME_STEPS = (900, 1500)   # the stopped run's budget, the full one
 FARM_TIMED_CYCLES = 1   # a full-width farm cycle takes seconds
 ROUTER_TASKS = 100
+# phase 9: data parallelism at the main config's widths (B = 64 chips a
+# cycle over the ranks, batch 128, replay 5000, 32 updates a cycle), cut to
+# MESH_CYCLES cycles; held to the one-device run as phase 5 holds the card
+# to the CPU: the first LEARN_UPDATES updates' losses within LOSS_RTOL, the
+# params after them within PARAM_ATOL outside noise gradients
+MESH_B = 64
+MESH_CYCLES = 3
+MESH_ARGV = ["dmfb", "--drop_num=4", "--fov=9", f"--n_parallel_envs={MESH_B}",
+             "--evaluate_task=100"]
 
 
 def log(msg):
@@ -1276,6 +1301,214 @@ def seed_farm(smi) -> dict:
     return out
 
 
+def mesh_run(argv, mesh=None, mark=False) -> dict:
+    """``Trainer`` of ``argv`` (as a rank of ``mesh``, or alone) for
+    ``MESH_CYCLES`` timed cycles; its cycles' losses, counted steps,
+    epsilon, the losses of its first ``LEARN_UPDATES`` updates and the
+    params after them (and with ``mark``, the noise-gradient masks of those
+    updates), final params, the ring rows it wrote, its kernel launches
+    and its ring's bytes."""
+    from marl_dmfb_tpu_torch.config import get_train_args, make_env_from_args
+    from marl_dmfb_tpu_torch.ops import dmfb_step
+    from marl_dmfb_tpu_torch.trainer import Trainer
+    from marl_dmfb_tpu_torch.utils.benchmarking import timeit_dispatch
+
+    args = get_train_args(argv, pri=False)
+    if mesh is not None:
+        args.device = str(mesh.device)
+    trainer = Trainer(make_env_from_args(args), args, mesh=mesh)
+    learner = trainer.learner
+    noisy = mark_noise(learner) if mark else None
+    cpu = lambda tree: {k: v.detach().cpu().clone() for k, v in tree.items()}
+    early = dict(losses=[])
+    plain = learner.update
+
+    def update(batch):   # the first LEARN_UPDATES updates' losses, params
+        loss = plain(batch)
+        if len(early["losses"]) < LEARN_UPDATES:
+            early["losses"].append(float(loss))
+            if len(early["losses"]) == LEARN_UPDATES:
+                early["params"] = cpu(learner.all_params)
+                early["noisy"] = noisy and cpu(noisy)
+                if mark:
+                    del learner.loss_and_grads   # these updates' only
+        return loss
+
+    learner.update = update
+    steps, cycle_ms = [], []
+    dmfb_step.launches = 0
+    for _ in range(MESH_CYCLES):
+        seconds, _ = timeit_dispatch(
+            lambda: steps.append(trainer.train_cycle()), iters=1, warmup=0,
+            subtract_rtt=False)
+        cycle_ms.append(seconds * 1e3)
+    launches = dmfb_step.launches
+    r = trainer.replay
+    cap_l = r.data["u"].shape[0]
+    n, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    if args.local_sampling:
+        rows = min(cap_l, r.size // n)
+    else:
+        rows = min(cap_l, max(0, r.size - rank * cap_l))
+    return dict(
+        losses=[float(x) for x in trainer.losses], steps=steps,
+        epsilon=float(trainer.epsilon), early_losses=early["losses"],
+        early=early["params"], noisy=early["noisy"],
+        final=cpu(learner.all_params),
+        ring={k: v[:rows].cpu() for k, v in r.data.items()},
+        cursor=r.cursor, size=r.size, cycle_ms=cycle_ms,
+        launches=launches, T=trainer.env.episode_limit,
+        B_local=trainer.env_states[0].shape[0],
+        ring_bytes=sum(v.nbytes for v in r.data.values()),
+        lr=args.lr)
+
+
+def mesh_rank(mesh, runs, out_dir):
+    """A rank of phase 9: each ``(tag, argv)`` of ``runs`` through
+    :func:`mesh_run`, saved to ``<out_dir>/<tag>_rank<r>.pt``."""
+    bad = sorted(m for m in ("jax", "marl_dmfb_tpu") if m in sys.modules)
+    if bad:
+        raise AssertionError(f"a phase 9 rank imported {bad}")
+    for tag, argv in runs:
+        rec = mesh_run(argv, mesh)
+        torch.save(rec, os.path.join(out_dir, f"{tag}_rank{mesh.rank}.pt"))
+
+
+def hold_to_one_device(ref, ranks, what, store="global") -> dict:
+    """Phase 9's checks of the ranks' records of one run against the
+    one-device record ``ref`` (the global store), or their own (the local
+    rings); raises on a failed check, returns the differences."""
+    first = ranks[0]
+    for rec in ranks[1:]:
+        for k, v in first["final"].items():
+            if not torch.equal(rec["final"][k], v):
+                raise AssertionError(f"{what}: the ranks' {k} differ")
+        if rec["losses"] != first["losses"] or rec["steps"] != first["steps"]:
+            raise AssertionError(f"{what}: the ranks report other losses")
+    n = len(ranks)
+    for rec in ranks:
+        if (rec["launches"] != rec["T"] * MESH_CYCLES
+                or rec["B_local"] != MESH_B // n):
+            raise AssertionError(
+                f"{what}: a rank launched the kernel {rec['launches']} times "
+                f"in {MESH_CYCLES} cycles at B = {rec['B_local']}")
+    if not all(math.isfinite(x) for x in first["losses"]):
+        raise AssertionError(f"{what}: losses {first['losses']}")
+    out = dict(cycle_ms=[rec["cycle_ms"] for rec in ranks],
+               launches=[rec["launches"] for rec in ranks],
+               ring_bytes=[rec["ring_bytes"] for rec in ranks],
+               losses=first["losses"])
+    if store == "local":
+        size = MESH_B * MESH_CYCLES
+        for rec in ranks:
+            if (rec["cursor"], rec["size"]) != (size, size) or \
+                    rec["ring"]["u"].shape[0] != size // n:
+                raise AssertionError(f"{what}: a local ring holds "
+                                     f"{rec['ring']['u'].shape[0]} rows")
+        return out
+    if first["steps"] != ref["steps"] or first["epsilon"] != ref["epsilon"]:
+        raise AssertionError(f"{what}: steps {first['steps']} epsilon "
+                             f"{first['epsilon']} against {ref['steps']} "
+                             f"{ref['epsilon']}")
+    for k, v in ref["ring"].items():
+        got = torch.cat([rec["ring"][k] for rec in ranks])
+        if not torch.equal(got, v):
+            raise AssertionError(f"{what}: the ring's {k} differs from the "
+                                 "one-device ring")
+    rel = lambda got, want: max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    loss_rel = rel(first["early_losses"], ref["early_losses"])
+    clean = worst = 0.0
+    for k, v in ref["early"].items():
+        diff = (first["early"][k] - v).abs()
+        kept = diff[~ref["noisy"][k]]
+        clean = max(clean, float(kept.max()) if kept.numel() else 0.0)
+        worst = max(worst, float(diff.max()))
+    adam_bound = 2 * ref["lr"] * LEARN_UPDATES
+    if not (loss_rel <= LOSS_RTOL and clean <= PARAM_ATOL
+            and worst <= adam_bound):
+        raise AssertionError(
+            f"{what} departs from one device over {LEARN_UPDATES} updates: "
+            f"loss rel diff {loss_rel:.3g}, params {clean:.3g} outside noise "
+            f"gradients, {worst:.3g} in all")
+    return dict(out, loss_rel=loss_rel, param_diff=clean,
+                param_diff_all=worst,
+                cycle_loss_rel=rel(first["losses"], ref["losses"]))
+
+
+def ms_list(ms) -> str:
+    return "[" + ", ".join(f"{x:.1f}" for x in ms) + "]"
+
+
+def data_parallel(smi) -> dict:
+    """Phase 9: data-parallel training of the main config on the card, as
+    the module docstring says; raises on any failed check, returns the
+    numbers."""
+    from marl_dmfb_tpu_torch.ops import dmfb_step
+    from marl_dmfb_tpu_torch.parallel.distributed import spawn
+
+    t9 = time.perf_counter()
+    dmfb_step.kernel_library()   # built before the ranks start
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_mesh")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    argv = MESH_ARGV + [f"--data_dir={out_dir}"]
+    local_argv = argv + ["--local_sampling"]
+    load = lambda tag, n: [torch.load(os.path.join(out_dir,
+                                                   f"{tag}_rank{r}.pt"))
+                           for r in range(n)]
+    out = {"phase_s": {}}
+
+    t0 = time.perf_counter()
+    ref = mesh_run(argv, mark=True)
+    out["one_device"] = dict(cycle_ms=ref["cycle_ms"],
+                             launches=ref["launches"],
+                             ring_bytes=ref["ring_bytes"],
+                             losses=ref["losses"])
+    log(f"phase 9: [{smi}] one device: {MESH_CYCLES} cycles of B={MESH_B}, "
+        f"ms a cycle {ms_list(ref['cycle_ms'])}, kernel launches "
+        f"{ref['launches']}, ring {ref['ring_bytes']} bytes")
+    out["phase_s"]["one_device"] = time.perf_counter() - t0
+
+    runs = [("a", ["cuda:0"], "nccl", [("nccl1", argv)]),
+            ("b", ["cuda:0", "cuda:0"], "gloo",
+             [("gloo2", argv), ("gloo2_local", local_argv)])]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("c", ["cuda:0", "cuda:1"], "nccl",
+                     [("nccl2", argv), ("nccl2_local", local_argv)]))
+    else:
+        log(f"phase 9 (c): not run: two ranks under NCCL need two cards, "
+            f"and {torch.cuda.device_count()} is visible")
+    for part, devices, backend, jobs in runs:
+        t0 = time.perf_counter()
+        spawn(mesh_rank, devices, backend, jobs, out_dir)
+        for tag, job in jobs:
+            store = "local" if "--local_sampling" in job else "global"
+            what = (f"phase 9 ({part}) {len(devices)} rank(s) under "
+                    f"{backend} on {sorted(set(devices))}, {store} ring")
+            res = hold_to_one_device(ref, load(tag, len(devices)), what,
+                                     store)
+            out[tag] = res
+            log(f"phase 9: [{smi}] {what}: ms a cycle on the ranks "
+                f"{'; '.join(ms_list(x) for x in res['cycle_ms'])} (one "
+                f"device {ms_list(ref['cycle_ms'])}); "
+                f"kernel launches per rank {res['launches']} (T x "
+                f"{MESH_CYCLES} cycles at B = {MESH_B // len(devices)}); "
+                f"ring bytes per rank {res['ring_bytes']}"
+                + (f"; over the first {LEARN_UPDATES} updates loss rel diff "
+                   f"{res['loss_rel']:.3g}, params {res['param_diff']:.3g} "
+                   f"outside noise gradients ({res['param_diff_all']:.3g} in "
+                   f"all); the cycles' mean losses drift apart by "
+                   f"{res['cycle_loss_rel']:.3g} (two float32 summing "
+                   "orders through 96 Adam updates); episodes, ring, steps "
+                   "and epsilon equal"
+                   if "loss_rel" in res else "; losses finite, ring rows "
+                   "per rank as written, params alike on the ranks"))
+        out["phase_s"][part] = time.perf_counter() - t0
+    out["phase_s"]["total"] = time.perf_counter() - t9
+    log(f"phase 9: {out['phase_s']['total']:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1555,6 +1788,7 @@ def main() -> int:
     phase6 = trained_policies(smi)
     phase7 = meda_qmix(smi)
     phase8 = seed_farm(smi)
+    phase9 = data_parallel(smi)
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     log(smi)
@@ -1593,6 +1827,8 @@ def main() -> int:
         "launches_farm": phase8["train"]["launches"],
         "launches_farm_rollout": phase8["train"]["launches_rollout"],
         "farm_batch": phase8["train"]["batch"],
+        "launches_mesh_rank": phase9["gloo2"]["launches"],
+        "mesh_rank_batch": MESH_B // 2,
     }]}))
     log(json.dumps({"train": {
         "cycles": cycles, "updates": updates,
@@ -1606,6 +1842,7 @@ def main() -> int:
         k: v for k, v in phase6.items() if k != "no_obs"}, "device": smi}))
     log(json.dumps({"meda_qmix": phase7, "device": smi}))
     log(json.dumps({"farm": phase8, "device": smi}))
+    log(json.dumps({"mesh": phase9, "device": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -10,8 +10,20 @@ optimizer, the EMA and the target sync act on the agent's and the mixer's
 parameters alike, as optax does on the JAX package's whole params tree; the
 target nets are copied from the eval nets every ``target_update_cycle``
 updates.  ``--remat`` recomputes each time step's activations in the
-backward pass (``torch.utils.checkpoint``), as JAX's ``jax.checkpoint``
-around the scan body; the loss and the gradients are the same.
+backward pass, as JAX's ``jax.checkpoint`` around the scan body
+(:func:`checkpoint`); the loss and the gradients are the same.
+``--fused_streams`` runs the eval and the target streams in one unroll over
+the two nets' parameters stacked (JAX ``unroll_pair``), the target half
+detached.
+
+Under a mesh of n ranks (``parallel/mesh.py``) the loss is the global
+minibatch's, ``sum(td^2) / sum(mask)`` over every rank's episodes (JAX
+``qlearn.py:273``): a rank differentiates its own ``sum(td^2)``, and the
+gradients, the squared sums and the mask counts go through one
+``all_reduce`` before the division, so that the clip and the optimizer see
+the same gradients on every rank and the parameters stay replicated.  The
+minibatch is the global ring's (``replay.sample``) or, with
+``--local_sampling``, each rank's own share (``replay.sample_local``).
 
 The JAX package had no Pallas kernel here; the port runs cuDNN/cuBLAS
 through ``torch.nn`` and writes the optimizer step by hand, in optax's
@@ -47,10 +59,13 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from marl_dmfb_tpu_torch.models.networks import stackable, vdn_mix
-from marl_dmfb_tpu_torch.replay import ReplayState, sample, sample_stacked
+from marl_dmfb_tpu_torch.models.networks import (StackedNet, stackable,
+                                                 vdn_mix)
+from marl_dmfb_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
+                                               replicate)
+from marl_dmfb_tpu_torch.replay import (ReplayState, sample, sample_local,
+                                        sample_stacked)
 from marl_dmfb_tpu_torch.utils.platform import disable_tf32
 
 ADAM_BETAS = (0.9, 0.99)   # JAX qlearn.py:78 (reference vdn.py:67-68)
@@ -178,12 +193,55 @@ def make_optimizer(args) -> Optimizer:
     return Optimizer(kind, args.lr, args.grad_norm_clip, decay_steps)
 
 
-def unroll(net: nn.Module, inputs: torch.Tensor, rnn_hidden: int,
+class _Remat(torch.autograd.Function):
+    """``fn(*args)`` whose backward runs ``fn`` again (``torch.func.vjp``)
+    instead of keeping its activations.  Written with ``setup_context`` and
+    a generated vmap rule, so that ``torch.func.grad`` and ``vmap`` take
+    it (the seed farm's learner), which ``torch.utils.checkpoint`` is
+    not."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _, vjp = torch.func.vjp(ctx.fn, *ctx.saved_tensors)
+        return (None, *vjp(grads))
+
+
+def checkpoint(net, x: torch.Tensor, h: torch.Tensor):
+    """``net(x, h)`` (a module, or a :class:`StackedNet`), its activations
+    recomputed in the backward pass; the parameters are inputs of the
+    recomputation, so their gradients flow as without it."""
+    if isinstance(net, StackedNet):
+        params, apply = net.params, net.apply
+    else:
+        params = dict(net.named_parameters())
+
+        def apply(p, x, h):
+            return torch.func.functional_call(net, p, (x, h))
+    names = list(params)
+
+    def step(*args):
+        return apply(dict(zip(names, args[:-2])), *args[-2:])
+
+    return _Remat.apply(step, *params.values(), x, h)
+
+
+def unroll(net, inputs: torch.Tensor, rnn_hidden: int,
            remat: bool = False) -> torch.Tensor:
-    """The whole net in a loop over time on ``(b*N)`` rows: inputs
-    ``(b, T, N, in_dim)`` -> Qs ``(b, T, N, n_actions)``.  With ``remat``
-    each step's activations are recomputed in the backward pass instead of
-    kept."""
+    """The whole net (a module, or a :class:`StackedNet`) in a loop over
+    time on ``(b*N)`` rows: inputs ``(b, T, N, in_dim)`` -> Qs
+    ``(b, T, N, n_actions)``.  With ``remat`` each step's activations are
+    recomputed in the backward pass instead of kept."""
     b, T, N = inputs.shape[:3]
     x_tb = inputs.transpose(0, 1).reshape(T, b * N, -1)
     h = inputs.new_zeros((b * N, rnn_hidden))
@@ -191,7 +249,7 @@ def unroll(net: nn.Module, inputs: torch.Tensor, rnn_hidden: int,
     qs = []
     for t in range(T):
         if remat:
-            q, h = checkpoint(net, x_tb[t], h, use_reentrant=False)
+            q, h = checkpoint(net, x_tb[t], h)
         else:
             q, h = net(x_tb[t], h)
         qs.append(q)
@@ -235,6 +293,12 @@ class TDLoss(nn.Module):
         self.args = args
         self.net, self.mixer = net, mixer
         self.target_net, self.target_mixer = target_net, target_mixer
+        # --fused_streams: the agent called on the 2-stack of the eval and
+        # target parameters (a copy gives the calls their structure; a
+        # StackedNet is no module, so the copy's own parameters are not
+        # the loss's)
+        self._pair = (StackedNet(copy.deepcopy(net), {}, 2)
+                      if args.fused_streams else None)
 
     def build_inputs(self, batch: dict, u_onehot: torch.Tensor):
         """Eval stream: ``o_ext[:, :T]`` with the previous step's action
@@ -249,8 +313,29 @@ class TDLoss(nn.Module):
         return (torch.cat([eval_obs, prev_u], dim=-1),
                 torch.cat([tgt_obs, u_onehot], dim=-1))
 
+    def unroll_pair(self, eval_in: torch.Tensor, tgt_in: torch.Tensor):
+        """Both streams in one unroll (JAX ``unroll_pair``): each step
+        calls the agent once on the eval rows under the eval parameters and
+        the target rows under the target ones (detached).  Returns
+        ``(q_evals, q_targets)``, those of two separate unrolls to float32
+        rounding."""
+        target = dict(self.target_net.named_parameters())
+        self._pair.params = {
+            k: torch.stack([p, target[k].detach()])
+            for k, p in self.net.named_parameters()}
+        q = unroll(self._pair, torch.cat([eval_in, tgt_in]),
+                   self.args.rnn_hidden_dim, bool(self.args.remat))
+        b = eval_in.shape[0]
+        return q[:b], q[b:].detach()
+
     def forward(self, batch: dict) -> torch.Tensor:
         """The loss of a minibatch in the ``(b, T, N, .)`` views."""
+        squares, mask_sum = self.td_sums(batch)
+        return squares / mask_sum
+
+    def td_sums(self, batch: dict):
+        """``(sum(td^2), sum(mask))`` of a minibatch, whose quotient is the
+        loss."""
         H, A = self.args.rnn_hidden_dim, self.args.n_actions
         remat = bool(self.args.remat)
         u = batch["u"].long()                          # (b, T, N, 1)
@@ -262,9 +347,12 @@ class TDLoss(nn.Module):
         u_onehot = _one_hot(u[..., 0], A) * mask[..., None]
         avail_next = mask[..., None].expand(u_onehot.shape)
         eval_in, tgt_in = self.build_inputs(batch, u_onehot)
-        q_evals = unroll(self.net, eval_in, H, remat)
-        with torch.no_grad():
-            q_targets = unroll(self.target_net, tgt_in, H)
+        if self._pair is not None:
+            q_evals, q_targets = self.unroll_pair(eval_in, tgt_in)
+        else:
+            q_evals = unroll(self.net, eval_in, H, remat)
+            with torch.no_grad():
+                q_targets = unroll(self.target_net, tgt_in, H)
         q_e = q_evals.gather(3, u).squeeze(3)          # (b, T, N)
         q_t = torch.where(avail_next == 0.0, MASKED_Q, q_targets).amax(3)
         if self.mixer is None:
@@ -276,7 +364,7 @@ class TDLoss(nn.Module):
                 q_tot_t = self.target_mixer(q_t, s_ext[:, 1:])
         targets = r + self.args.gamma * q_tot_t * (1.0 - terminated)
         td = (targets.detach() - q_tot_e) * mask
-        return torch.sum(td ** 2) / torch.sum(mask)
+        return torch.sum(td ** 2), torch.sum(mask)
 
 
 def functional_loss(loss: TDLoss):
@@ -304,18 +392,28 @@ class QLearner:
     JAX package's ``LearnerState`` is: ``params`` and ``target_params``
     (``{"agent": {name: tensor}, "mixer": {...}}``, the mixer only under
     QMIX), ``opt_state`` (its moments in the same layout) and
-    ``train_step``."""
+    ``train_step``.
+
+    Under ``mesh`` the nets take rank 0's parameters, and every update
+    keeps them alike on every rank (module docstring)."""
 
     def __init__(self, args, net: nn.Module,
-                 mixer: Optional[nn.Module] = None):
+                 mixer: Optional[nn.Module] = None,
+                 mesh: Optional[Mesh] = None):
         if args.alg not in ("vdn", "qmix"):
             raise ValueError(f"unknown --alg {args.alg!r}: vdn or qmix")
         if (args.alg == "qmix") != (mixer is not None):
             raise ValueError("--alg qmix takes a mixer, and vdn none")
+        if (mesh is not None and args.local_sampling
+                and args.batch_size % mesh.size):
+            raise ValueError(
+                f"--local_sampling: batch_size ({args.batch_size}) must tile "
+                f"the {mesh.size}-device mesh")
         disable_tf32()
         self.args = args
-        self.net = net
-        self.mixer = mixer
+        self.mesh = mesh
+        self.net = replicate(mesh, net)
+        self.mixer = replicate(mesh, mixer)
         self.target_net = copy.deepcopy(net).requires_grad_(False)
         self.target_mixer = (None if mixer is None else
                              copy.deepcopy(mixer).requires_grad_(False))
@@ -344,10 +442,25 @@ class QLearner:
 
     def loss_and_grads(self, batch: dict):
         """The loss and its gradients, keyed as :attr:`all_params` (the
-        agent's names, and the mixer's with the prefix ``mixer.``)."""
-        loss = self.loss(batch)
-        grads = torch.autograd.grad(loss, list(self.all_params.values()))
-        return loss, dict(zip(self.all_params, grads))
+        agent's names, and the mixer's with the prefix ``mixer.``); under a
+        mesh, those of the global minibatch, of which ``batch`` is this
+        rank's share."""
+        params = list(self.all_params.values())
+        if self.mesh is None:
+            loss = self.loss(batch)
+            return loss, dict(zip(self.all_params,
+                                  torch.autograd.grad(loss, params)))
+        squares, mask_sum = self.loss_module.td_sums(batch)
+        grads = torch.autograd.grad(squares, params)
+        flat = all_reduce_sum(self.mesh, torch.cat(
+            [g.reshape(-1) for g in grads]
+            + [squares.detach().reshape(1), mask_sum.reshape(1)]))
+        total = flat[-1]
+        out, at = {}, 0
+        for k, g in zip(self.all_params, grads):
+            out[k] = flat[at:at + g.numel()].view_as(g) / total
+            at += g.numel()
+        return flat[-2] / total, out
 
     def update(self, batch: dict) -> torch.Tensor:
         """One step on ``batch``; the target nets take the eval nets'
@@ -370,11 +483,28 @@ class QLearner:
                    idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``n_updates`` sample-and-update steps; returns the mean loss.
         ``idx`` ``(n_updates, batch_size)`` gives the minibatches' episode
-        indices instead of drawing them from ``generator``."""
+        indices instead of drawing them from ``generator``.
+
+        Under a mesh ``replay`` is this rank's part of the ring, and
+        ``generator`` is alike on every rank.  With ``--local_sampling``
+        each rank draws ``batch_size / n`` indices of its own ring from a
+        stream of its own, seeded with a number drawn from ``generator``
+        plus its rank (JAX folds the device index into the key), and
+        ``idx`` ``(n_updates, batch_size / n)`` holds this rank's; else
+        ``idx`` holds the whole minibatch's, as on one device."""
+        local = self.mesh is not None and self.args.local_sampling
+        b = self.args.batch_size
+        if local and idx is None:
+            device = replay.data["u"].device
+            seed = int(torch.randint(0, 2 ** 62, (), generator=generator,
+                                     device=device))
+            generator = torch.Generator(device=device).manual_seed(
+                seed + self.mesh.rank)
         losses = []
         for k in range(n_updates):
-            batch = sample(replay, self.args.batch_size, generator,
-                           None if idx is None else idx[k])
+            i = None if idx is None else idx[k]
+            batch = (sample_local(replay, b, self.mesh, generator, i)
+                     if local else sample(replay, b, generator, i, self.mesh))
             losses.append(self.update(batch))
         return torch.stack(losses).mean()
 
@@ -415,13 +545,6 @@ class QLearner:
         self.train_step = int(tree["train_step"])
 
 
-REMAT_WITH_SEEDS = (
-    "--remat --vmap_seeds: torch.utils.checkpoint does not compose with "
-    "torch.func.grad (saved-tensor hooks; the reentrant form lacks "
-    "setup_context), ROADMAP.md Queue 3 item 4; train the seeds without "
-    "--remat")
-
-
 class StackedQLearner:
     """S independent learners of one configuration, updated in lockstep as
     one program (the seed farm's; JAX ``seedfarm.py`` vmaps ``learn``).
@@ -443,8 +566,6 @@ class StackedQLearner:
                  params: dict):
         if args.alg not in ("vdn", "qmix"):
             raise ValueError(f"unknown --alg {args.alg!r}: vdn or qmix")
-        if args.remat:
-            raise NotImplementedError(REMAT_WITH_SEEDS)
         disable_tf32()
         self.args = args
         stackable(net)

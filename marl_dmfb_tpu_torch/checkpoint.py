@@ -8,6 +8,11 @@ The tree holds ``learner`` (``params``, ``target_params``, ``opt_state``,
 ``env_states``.  Every leaf is a tensor, a number or a string, so loading
 unpickles nothing else (``weights_only=True``).
 
+A data-parallel run (``parallel/mesh.py``) writes from rank 0 alone, with
+the ring and the training chips gathered to the one-device layout, and
+every rank reads the file and keeps its rows (``trainer.py``), so that a
+checkpoint resumes on any number of devices.
+
 Loading is strict by name (:func:`restructure`, after JAX
 ``restructure_by_path``): a missing entry, an extra entry, or a leaf of
 another shape or dtype kind raises ``ValueError`` naming its path.

@@ -15,9 +15,10 @@ Deviations from the JAX CLI:
   on by default and no flag turns it off): the port's own ``.pt``, or a
   JAX checkpoint exported to ``.npz`` by ``tools/export_flax_npz.py``
   (``checkpoint.py``).
-* the multi-device flags and ``--fused_streams`` are parsed and raise
-  ``NotImplementedError`` when set away from their default (see
-  :func:`refuse_unported`); ``--scan_unroll`` is accepted and ignored.
+* ``--mesh <n>`` runs n processes, one per device, in a
+  ``torch.distributed`` group (``train.py`` starts them, or a launcher
+  such as ``torchrun`` did); the seed farm on a mesh exits as JAX's does
+  (:func:`refuse_unported`); ``--scan_unroll`` is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -264,8 +265,10 @@ def _common_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_dir", type=str, default="",
                    help="output root (default data-<env>/)")
     p.add_argument("--mesh", type=str, default="auto",
-                   help="'auto' or 'off' (one device); a device count is "
-                        "not ported yet")
+                   help="data-parallel devices: a count n (one process "
+                        "per device, the env batch and the replay ring "
+                        "split by rows, parameters replicated), 'auto' "
+                        "(the launcher's process group, if any) or 'off'")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bf16"],
                    help="net matmul/conv precision: bf16 rounds their "
@@ -277,20 +280,10 @@ def _common_parser() -> argparse.ArgumentParser:
 
 
 def refuse_unported(args: Args) -> Args:
-    """Raise ``NotImplementedError`` for a flag the port parses but does not
-    implement yet, naming the ROADMAP.md item that will."""
-    multi_gpu = "ROADMAP.md Queue 1 item 11 (multi-GPU)"
-    if args.mesh not in ("auto", "off"):
-        if args.vmap_seeds > 1:   # JAX train.py:39-48
-            raise SystemExit("--vmap_seeds runs on one device; use "
-                             "--mesh=off")
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: {multi_gpu}; use --mesh auto or off")
-    if args.local_sampling:
-        raise NotImplementedError(f"--local_sampling: {multi_gpu}")
-    if args.fused_streams:
-        raise NotImplementedError(
-            "--fused_streams: ROADMAP.md Queue 4 (learner speed)")
+    """Exit for the flags that do not go together, as the JAX CLI does: the
+    seed farm runs on one device (JAX train.py:39-48)."""
+    if args.mesh not in ("auto", "off") and args.vmap_seeds > 1:
+        raise SystemExit("--vmap_seeds runs on one device; use --mesh=off")
     return args
 
 
@@ -308,7 +301,9 @@ def get_train_args(argv=None, pri: bool = True) -> Args:
     p.add_argument("--lr_decay", default=False, action="store_true",
                    help="cosine lr decay to 5%% over training")
     p.add_argument("--local_sampling", default=False, action="store_true",
-                   help="per-device replay sampling (not ported yet)")
+                   help="under --mesh, each device keeps its own episodes "
+                        "in a ring of its own and samples its share of the "
+                        "minibatch from it: no episode crosses devices")
     p.add_argument("--vmap_seeds", type=int, default=0,
                    help="train K independent seeds (seed, seed + 1, ...) "
                         "in lockstep as one program (the seed farm)")
@@ -321,7 +316,8 @@ def get_train_args(argv=None, pri: bool = True) -> Args:
                         "backward pass (torch.utils.checkpoint): less "
                         "memory, the same loss and gradients")
     p.add_argument("--fused_streams", default=False, action="store_true",
-                   help="one unroll for both streams (not ported yet)")
+                   help="one unroll for the eval and target streams, over "
+                        "the two nets' parameters stacked")
     # eager torch has no scan to unroll: parsed for the JAX CLI's sake and
     # ignored
     p.add_argument("--scan_unroll", type=int, default=0)

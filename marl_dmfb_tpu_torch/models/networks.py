@@ -238,8 +238,12 @@ class StackedNet:
             lambda p, x, h: torch.func.functional_call(net, p, (x, h)))
 
     def __call__(self, x: torch.Tensor, h: torch.Tensor):
+        return self.apply(self.params, x, h)
+
+    def apply(self, params: dict, x: torch.Tensor, h: torch.Tensor):
+        """The call on the stacked ``params`` instead of :attr:`params`."""
         S = self.n_seeds
-        q, h = self._forward(self.params, x.reshape(S, -1, x.shape[-1]),
+        q, h = self._forward(params, x.reshape(S, -1, x.shape[-1]),
                              h.reshape(S, -1, h.shape[-1]))
         return q.flatten(0, 1), h.flatten(0, 1)
 

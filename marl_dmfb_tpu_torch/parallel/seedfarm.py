@@ -52,8 +52,8 @@ newest readable one and continues; under ``--ckpt_replay`` the
 continuation is bitwise that of an uninterrupted run, and without it the
 rings restart empty, as the Trainer's resume does.  A checkpoint written
 with another ``--param_ema`` or ``--ckpt_replay`` raises ``ValueError``.
-``--remat`` does not compose with ``torch.func.grad`` and raises
-``NotImplementedError``.
+``--remat`` recomputes each BPTT step under ``torch.func`` too
+(``algos/qlearn.py:checkpoint``).
 """
 
 from __future__ import annotations
@@ -67,8 +67,8 @@ import numpy as np
 import torch
 
 from marl_dmfb_tpu_torch import checkpoint
-from marl_dmfb_tpu_torch.algos.qlearn import (MIXER, REMAT_WITH_SEEDS,
-                                              StackedQLearner, _flat, _nest)
+from marl_dmfb_tpu_torch.algos.qlearn import (MIXER, StackedQLearner, _flat,
+                                              _nest)
 from marl_dmfb_tpu_torch.config import Args
 from marl_dmfb_tpu_torch.envs.registry import Env
 from marl_dmfb_tpu_torch.models.networks import (StackedNet, build_agent_net,
@@ -111,8 +111,6 @@ class SeedFarm:
     def __init__(self, env: Env, args: Args, n_seeds: int):
         if n_seeds < 1:
             raise ValueError(f"a farm needs at least one seed, got {n_seeds}")
-        if args.remat:
-            raise NotImplementedError(REMAT_WITH_SEEDS)
         disable_tf32()
         self.env, self.args, self.S = env, args, n_seeds
         self.device = device = torch.device(args.device)

@@ -16,6 +16,21 @@ The seed farm keeps one ring per seed as one ring with a seed axis first
 (``init_replay(seeds=S)``): every seed stores B episodes a cycle, so the
 seeds share the cursor and the size; :func:`store_stacked` and
 :func:`sample_stacked` write and read all seeds in one operation per field.
+
+Under a mesh of n ranks (``parallel/mesh.py``) each rank holds C/n rows of
+a ring of C episodes, and the cursor and the size stay global, the same on
+every rank.  Two pairings, which must not be mixed (JAX ``replay.py:137-161``):
+
+* the global ring (:func:`store` and :func:`sample` with ``mesh``): rank r
+  holds rows ``[r*C/n, (r+1)*C/n)`` of the one-device ring.  A store
+  gathers the cycle's B episodes and each rank writes the ring rows it
+  holds; a minibatch's indices are drawn alike on every rank over the whole
+  ring, and rank r gathers its share of them from wherever they live;
+* local rings (:func:`store_local` and :func:`sample_local`,
+  ``--local_sampling``): each rank's C/n rows are a ring of their own,
+  written with its own B/n episodes at the shared cursor ``cursor // n``,
+  and a rank draws its b/n indices from its own rows, with a stream of its
+  own; no episode leaves its rank.
 """
 
 from __future__ import annotations
@@ -23,6 +38,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from marl_dmfb_tpu_torch.parallel.mesh import Mesh, gather_rows, gather_shards
 
 
 class ReplayState(NamedTuple):
@@ -86,11 +103,54 @@ def logical_views(data: dict) -> dict:
     return views
 
 
-def store(replay: ReplayState, episodes: dict) -> ReplayState:
+def store(replay: ReplayState, episodes: dict,
+          mesh: Optional[Mesh] = None) -> ReplayState:
     """Write B episodes (each array ``(B, T, ...)``) into the ring in place
     at the cursor, wrapping; returns the ring with the new cursor and
-    size (the tensors are the same)."""
-    return _store(replay, _flatten_episodes(episodes), 0)
+    size (the tensors are the same).  Under ``mesh`` the ring is this
+    rank's rows of the global ring and ``episodes`` this rank's rows of the
+    cycle's: they are gathered, and the rank writes the ring rows it
+    holds."""
+    flat = _flatten_episodes(episodes)
+    if mesh is None:
+        return _store(replay, flat, 0)
+    cap_l = replay.data["u"].shape[0]
+    capacity = cap_l * mesh.size
+    b_l = flat["u"].shape[0]
+    B = b_l * mesh.size
+    if B > capacity:
+        raise ValueError(f"a rollout of {B} episodes does not fit a replay "
+                         f"ring of {capacity}")
+    device = flat["u"].device
+    glob = gather_shards(mesh, flat)
+    pos = (replay.cursor + torch.arange(B, device=device)) % capacity
+    mine = (pos // cap_l) == mesh.rank
+    rows = pos[mine] % cap_l
+    for k, v in replay.data.items():
+        v.index_copy_(0, rows, glob[k][mine].to(v.dtype))
+    return ReplayState(data=replay.data,
+                       cursor=(replay.cursor + B) % capacity,
+                       size=min(replay.size + B, capacity))
+
+
+def store_local(replay: ReplayState, episodes: dict,
+                mesh: Mesh) -> ReplayState:
+    """``--local_sampling``'s store (JAX ``make_local_store``): this rank's
+    B/n episodes go into its own ring of C/n rows at ``cursor // n``; the
+    global cursor and size advance by B.  No episode leaves the rank."""
+    flat = _flatten_episodes(episodes)
+    cap_l = replay.data["u"].shape[0]
+    capacity = cap_l * mesh.size
+    b_l = flat["u"].shape[0]
+    device = flat["u"].device
+    rows = (replay.cursor // mesh.size
+            + torch.arange(b_l, device=device)) % cap_l
+    for k, v in replay.data.items():
+        v.index_copy_(0, rows, flat[k].to(v.dtype))
+    B = b_l * mesh.size
+    return ReplayState(data=replay.data,
+                       cursor=(replay.cursor + B) % capacity,
+                       size=min(replay.size + B, capacity))
 
 
 def store_stacked(replay: ReplayState, episodes: dict) -> ReplayState:
@@ -121,14 +181,46 @@ def _store(replay: ReplayState, episodes: dict, axis: int) -> ReplayState:
 
 def sample(replay: ReplayState, batch_size: int,
            generator: Optional[torch.Generator] = None,
-           idx: Optional[torch.Tensor] = None) -> dict:
+           idx: Optional[torch.Tensor] = None,
+           mesh: Optional[Mesh] = None) -> dict:
     """A minibatch of ``batch_size`` episodes drawn uniformly with
     replacement from the ``max(size, 1)`` stored ones (JAX
     ``replay.sample``); ``idx`` gives the indices instead, which lets the
-    tests replay the JAX package's draws."""
+    tests replay the JAX package's draws.  Under ``mesh`` (a global ring,
+    this rank's rows of it) the indices are the whole minibatch's, drawn
+    alike on every rank, and the rank gets its share of them,
+    ``mesh.rows(batch_size)``, gathered from the ranks that hold them."""
     device = replay.data["u"].device
     if idx is None:
         idx = torch.randint(0, max(replay.size, 1), (batch_size,),
+                            generator=generator, device=device)
+    idx = idx.to(device)
+    if mesh is None:
+        return logical_views({k: v[idx] for k, v in replay.data.items()})
+    cap_l = replay.data["u"].shape[0]
+    owned = (idx // cap_l) == mesh.rank
+    local = idx % cap_l
+    rows = gather_rows(mesh, {k: v[local] for k, v in replay.data.items()},
+                       owned)
+    mine = mesh.rows(idx.shape[0])
+    return logical_views({k: v[mine] for k, v in rows.items()})
+
+
+def sample_local(replay: ReplayState, batch_size: int, mesh: Mesh,
+                 generator: Optional[torch.Generator] = None,
+                 idx: Optional[torch.Tensor] = None) -> dict:
+    """``--local_sampling``'s minibatch share (JAX ``make_local_sample``):
+    ``batch_size / n`` episodes of this rank's own ring, drawn from its
+    ``clip(size // n, 1, C/n)`` written rows with ``generator``, this
+    rank's stream; ``idx`` gives them instead."""
+    if batch_size % mesh.size:
+        raise ValueError(f"local sampling: batch_size ({batch_size}) must "
+                         f"tile the {mesh.size}-device mesh")
+    device = replay.data["u"].device
+    cap_l = replay.data["u"].shape[0]
+    if idx is None:
+        local_size = min(max(replay.size // mesh.size, 1), cap_l)
+        idx = torch.randint(0, local_size, (batch_size // mesh.size,),
                             generator=generator, device=device)
     idx = idx.to(device)
     return logical_views({k: v[idx] for k, v in replay.data.items()})

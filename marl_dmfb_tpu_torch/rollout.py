@@ -17,6 +17,14 @@ are the JAX package's:
 * ``o_ext`` holds T+1 observations (o_0 .. o_T), and with ``with_state``
   (QMIX) ``s_ext`` the T+1 global states, int8, each written as its step
   runs (a MEDA 30x60 state is 3600 values a chip).
+
+Under a mesh (``parallel/mesh.py``) the chips are this rank's rows of the
+global batch, and every draw is made at the global shape from the
+generator, which is alike on every rank, and cut to the rank's rows: the
+new tasks of the reset, the random actions, the exploration draws and the
+move-success draws (JAX ``rollout.py:98-134``).  A rank's episodes are then
+the same rows of the one-device rollout's, and epsilon anneals by the live
+share of the global batch, summed over the ranks at each step.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from marl_dmfb_tpu_torch.envs.registry import Env
+from marl_dmfb_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
+                                               shard_rows, tile_rows)
 from marl_dmfb_tpu_torch.utils.platform import disable_tf32
 
 
@@ -60,7 +70,8 @@ def _tree_where(cond_b: torch.Tensor, a, b):
 
 
 def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
-                 with_state: bool = False, last_action: bool = True):
+                 with_state: bool = False, last_action: bool = True,
+                 mesh: Optional[Mesh] = None):
     """Build ``rollout(env_states, generator, epsilon, anneal_per_step,
     min_epsilon, greedy=False, noise=None) -> RolloutResult``.
 
@@ -70,7 +81,9 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
     from ``generator`` (on the states' device) unless ``noise`` gives it,
     which lets tests replay the JAX package's draws, and the seed farm
     give each seed its own generator's.  ``with_state`` adds the episodes'
-    global states, ``s_ext`` (JAX rollout.py:191-193, 239-243)."""
+    global states, ``s_ext`` (JAX rollout.py:191-193, 239-243).  Under
+    ``mesh`` the states are this rank's rows of the global batch and
+    ``noise``, when given, is the global batch's (module docstring)."""
     disable_tf32()
     N, A, T = env.n_agents, env.n_actions, env.episode_limit
 
@@ -87,9 +100,15 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
     def rollout(env_states, generator: torch.Generator, epsilon,
                 anneal_per_step, min_epsilon, greedy: bool = False,
                 noise: Optional[RolloutNoise] = None) -> RolloutResult:
-        states = env.reset(env_states, generator)
+        if mesh is None:
+            states = env.reset(env_states, generator)
+        else:   # the global batch's new tasks, this rank's rows of them
+            states = shard_rows(mesh, env.reset(tile_rows(mesh, env_states),
+                                                generator))
         obs0 = env.observe(states)
         B, device = obs0.shape[0], obs0.device
+        n = 1 if mesh is None else mesh.size
+        rows = slice(None) if mesh is None else mesh.rows(B * n)
         f32 = dict(dtype=torch.float32, device=device)
         eps = torch.as_tensor(epsilon, **f32)
         anneal = torch.as_tensor(anneal_per_step, **f32)
@@ -103,7 +122,7 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
                 return eps.repeat_interleave(B // seeds)[:, None]
         else:
             def live_frac(live):
-                return live.float().mean()
+                return all_reduce_sum(mesh, live.float().sum()) / (B * n)
 
             def chip_eps(eps):
                 return eps
@@ -123,15 +142,18 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
             a = q.argmax(dim=-1).to(torch.int32)
             if not greedy:
                 if noise is None:
-                    rand_a = torch.randint(0, A, (B, N), generator=generator,
-                                           device=device, dtype=torch.int32)
-                    explore_u = torch.rand((B, N), generator=generator,
+                    rand_a = torch.randint(0, A, (B * n, N),
+                                           generator=generator, device=device,
+                                           dtype=torch.int32)
+                    explore_u = torch.rand((B * n, N), generator=generator,
                                            device=device)
                 else:
                     rand_a, explore_u = noise.rand_a[t], noise.explore_u[t]
-                a = torch.where(explore_u < chip_eps(eps), rand_a, a)
-            uniforms = (torch.rand((B, N), generator=generator, device=device)
-                        if noise is None else noise.env_uniforms[t])
+                a = torch.where(explore_u[rows] < chip_eps(eps), rand_a[rows],
+                                a)
+            uniforms = (torch.rand((B * n, N), generator=generator,
+                                   device=device)
+                        if noise is None else noise.env_uniforms[t])[rows]
             new_states, out = env.step_core(states, a, uniforms)
             states = _tree_where(live, new_states, states)
 
@@ -178,11 +200,21 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
     return rollout
 
 
-def summarize_eval(result: RolloutResult) -> dict:
-    """Average the per-episode metrics (reference ``Evaluator.evaluate``)."""
-    return {
-        "reward": float(result.reward.mean()),
-        "steps": float(result.steps.float().mean()),
-        "constraints": float(result.constraints.float().mean()),
-        "success_rate": float(result.success.float().mean()),
-    }
+def summarize_eval(result: RolloutResult,
+                   mesh: Optional[Mesh] = None) -> dict:
+    """Average the per-episode metrics (reference ``Evaluator.evaluate``);
+    under ``mesh``, over every rank's episodes (float64 sums)."""
+    if mesh is None:
+        return {
+            "reward": float(result.reward.mean()),
+            "steps": float(result.steps.float().mean()),
+            "constraints": float(result.constraints.float().mean()),
+            "success_rate": float(result.success.float().mean()),
+        }
+    sums = torch.stack([x.double().sum() for x in (
+        result.reward, result.steps, result.constraints, result.success)]
+        + [torch.tensor(float(result.reward.numel()), dtype=torch.float64,
+                        device=result.reward.device)])
+    sums = all_reduce_sum(mesh, sums).tolist()
+    return {k: v / sums[-1] for k, v in zip(
+        ("reward", "steps", "constraints", "success_rate"), sums)}

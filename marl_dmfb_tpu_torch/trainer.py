@@ -21,6 +21,20 @@ and then a QMIX mixer's (so the weights are the same on every device), and
 one on ``args.device`` for the evaluation chips, the training chips, the
 rollouts' draws and the learner's minibatches, in that order; a checkpoint
 holds its state in place of the JAX PRNG key.
+
+Data parallelism (``mesh``, JAX ``trainer.py:160-246, 431-435``): every
+rank draws what one device would, at the global shapes, from its generator
+(alike on every rank), and keeps its rows: the training chips, the
+rollouts' draws, and the evaluation chips when ``evaluate_task`` tiles the
+mesh (else every rank evaluates all of them).  B and the replay capacity
+are rounded up to tile the mesh.  The ring is the global one split by rows,
+or under ``--local_sampling`` one local ring a rank.  The learner keeps the
+parameters alike on every rank, and the host state (epsilon, the update
+count, the ring's cursor and size) is alike too.  Evaluation metrics and
+counted env steps are summed over the ranks; rank 0 alone prints, writes
+the curves and writes the checkpoints, in which the ring and the training
+chips are gathered to the one-device layout, so that a checkpoint resumes
+on any number of devices.
 """
 
 from __future__ import annotations
@@ -28,6 +42,7 @@ from __future__ import annotations
 import copy
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,6 +54,9 @@ from marl_dmfb_tpu_torch.config import Args
 from marl_dmfb_tpu_torch.envs.registry import Env
 from marl_dmfb_tpu_torch.models.networks import (build_agent_net,
                                                  build_mixer, init_params)
+from marl_dmfb_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
+                                               barrier, gather_shards,
+                                               shard_rows)
 from marl_dmfb_tpu_torch.rollout import make_rollout, summarize_eval
 from marl_dmfb_tpu_torch.utils.platform import disable_tf32
 
@@ -86,15 +104,31 @@ def _copy(dst: dict, src: dict):
             p.copy_(src[part][k])
 
 
+def _tile(n: int, mesh: Optional[Mesh], what: str) -> int:
+    """``n`` rounded up to a multiple of the mesh's size (JAX
+    trainer.py:181-189, 211-219)."""
+    if mesh is None or n % mesh.size == 0:
+        return n
+    up = -(-n // mesh.size) * mesh.size
+    if mesh.rank == 0:
+        print(f"mesh: rounding {what} up to {up} ({mesh.size} devices)",
+              flush=True)
+    return up
+
+
 class Trainer:
-    def __init__(self, env: Env, args: Args, eval_only: bool = False):
+    def __init__(self, env: Env, args: Args, eval_only: bool = False,
+                 mesh: Optional[Mesh] = None):
         """``eval_only`` builds the nets and the evaluation chips only: no
         learner, replay ring or training chips.  Under ``--alg qmix`` the
         mixer is built in either case, so that a checkpoint's mixer loads
-        where its board is this one's (JAX trainer.py:172)."""
+        where its board is this one's (JAX trainer.py:172).  ``mesh``: this
+        process's rank of a data-parallel run (module docstring)."""
         self.env = env
         self.args = args
         self.eval_only = eval_only
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
         self.device = torch.device(args.device)
         disable_tf32()
         args.update_env_info(env.env_info())
@@ -106,24 +140,39 @@ class Trainer:
                 init_params(module, g)
                 module.to(self.device)
         self.learner = (None if eval_only
-                        else QLearner(args, self.net, self.mixer))
+                        else QLearner(args, self.net, self.mixer, mesh))
         self.generator = torch.Generator(device=self.device).manual_seed(
             args.seed)
-        self.eval_states = env.init(args.evaluate_task, self.generator,
-                                    self.device)
+        # the evaluation chips are split when they tile the mesh, else every
+        # rank evaluates all of them (JAX shard_batch's replicate rule)
+        self.eval_mesh = (mesh if mesh is None
+                          or args.evaluate_task % mesh.size == 0 else None)
+        self.eval_states = shard_rows(self.eval_mesh, env.init(
+            args.evaluate_task, self.generator, self.device))
         H = args.rnn_hidden_dim
         qmix = self.mixer is not None
         self.rollout = make_rollout(env, self.net, H, with_state=qmix,
-                                    last_action=args.last_action)
-        self.B = B = args.rollout_batch
+                                    last_action=args.last_action, mesh=mesh)
+        self.eval_rollout = (
+            self.rollout if self.eval_mesh is mesh else
+            make_rollout(env, self.net, H, last_action=args.last_action))
+        self.B = B = _tile(args.rollout_batch, mesh, "rollout batch")
         self.env_states = self.replay = None
         if not eval_only:
-            self.env_states = env.init(B, self.generator, self.device)
+            self.env_states = shard_rows(mesh, env.init(
+                B, self.generator, self.device))
+            capacity = _tile(args.buffer_size, mesh, "replay capacity")
             self.replay = replay_lib.init_replay(
-                args.buffer_size, args.episode_limit, args.n_agents,
+                capacity // (1 if mesh is None else mesh.size),
+                args.episode_limit, args.n_agents,
                 args.obs_shape[-1], obs_dtype=env.params.obs_dtype,
                 device=self.device,
                 state_dim=args.state_shape if qmix else None)
+        # --local_sampling pairs the local rings' store with the learner's
+        # local sampling (replay.py)
+        self._store = (replay_lib.store_local
+                       if mesh is not None and args.local_sampling
+                       else replay_lib.store)
 
         self.epsilon = args.epsilon
         self.anneal_per_step = (
@@ -142,7 +191,8 @@ class Trainer:
                 self.ema_mixer = copy.deepcopy(
                     self.mixer).requires_grad_(False)
             self.ema_rollout = make_rollout(env, self.ema_net, H,
-                                            last_action=args.last_action)
+                                            last_action=args.last_action,
+                                            mesh=self.eval_mesh)
             self.cycle_decay = float(args.param_ema) ** self.updates_per_rollout
 
         # metric curves (reference train.py:21-25)
@@ -160,15 +210,18 @@ class Trainer:
     def evaluate(self) -> dict:
         """Greedy evaluation over fresh random tasks on the evaluation chips
         (JAX trainer.py:300-315), with the EMA params under --param_ema."""
-        rollout = self.rollout if self.ema_net is None else self.ema_rollout
+        rollout = (self.eval_rollout if self.ema_net is None
+                   else self.ema_rollout)
         result = rollout(self.eval_states, self.generator, 0.0, 0.0, 0.0,
                          greedy=True)
         self.eval_states = result.env_states
-        return summarize_eval(result)
+        return summarize_eval(result, self.eval_mesh)
 
-    def _tree(self) -> dict:
+    def _tree(self, gathered: bool = True) -> dict:
         """The checkpoint tree, its tensors live (the learner's are
-        copies)."""
+        copies).  Under a mesh the ring and the training chips are this
+        rank's rows, or with ``gathered`` (a collective) the global
+        arrays."""
         a = self.args
         tree = {
             "learner": self.learner.state(),
@@ -180,18 +233,25 @@ class Trainer:
         if self.ema_net is not None:
             tree["ema"] = _named(self.ema_net, self.ema_mixer)
         if a.ckpt_replay:
-            tree["replay"] = {"data": self.replay.data,
-                              "cursor": self.replay.cursor,
+            data, chips = self.replay.data, self.env_states._asdict()
+            if self.mesh is not None and gathered:
+                data = gather_shards(self.mesh, data)
+                chips = gather_shards(self.mesh, chips)
+            tree["replay"] = {"data": data, "cursor": self.replay.cursor,
                               "size": self.replay.size}
-            tree["env_states"] = self.env_states._asdict()
+            tree["env_states"] = chips
         return tree
 
     def save_model(self, tag) -> str:
-        """Checkpoint the full training state (JAX trainer.py:317-350)."""
+        """Checkpoint the full training state (JAX trainer.py:317-350);
+        under a mesh every rank calls it and rank 0 writes."""
         if self.learner is None:
             raise RuntimeError("Trainer was built with eval_only=True")
         path = checkpoint.model_state_path(self.args, tag, write=True)
-        checkpoint.save(path, checkpoint.to_cpu(self._tree()))
+        tree = self._tree()
+        if self.is_main:
+            checkpoint.save(path, checkpoint.to_cpu(tree))
+        barrier(self.mesh)
         return path
 
     def _set_params(self, params: dict, target: dict):
@@ -268,7 +328,12 @@ class Trainer:
                     f"{'on' if key in tree else 'off'}, and this run has it "
                     f"{'on' if on else 'off'}; resume with the same "
                     f"--{flag}")
-        template = self._tree()
+        if self.mesh is not None and "replay" in tree:
+            # a checkpoint holds the one-device layout: take this rank's rows
+            tree["replay"]["data"] = shard_rows(self.mesh,
+                                                tree["replay"]["data"])
+            tree["env_states"] = shard_rows(self.mesh, tree["env_states"])
+        template = self._tree(gathered=False)
         if path.endswith(".npz"):
             del template["generator"]
         # the net config was read by restore_net_config, and the params'
@@ -306,7 +371,7 @@ class Trainer:
                 max(a.min_epsilon, float(self.epsilon) - dec)))
         else:
             self.epsilon = result.epsilon
-        self.replay = replay_lib.store(self.replay, result.episodes)
+        self.replay = self._store(self.replay, result.episodes, self.mesh)
         self.losses.append(self.learner.learn_many(
             self.replay, self.updates_per_rollout, self.generator))
         if self.ema_net is not None:
@@ -318,7 +383,7 @@ class Trainer:
                     for k, e in params.items():
                         e.copy_(d * e + (1.0 - d) * live[part][k])
         self.n_cycles += 1
-        return int(result.steps.sum())
+        return int(all_reduce_sum(self.mesh, result.steps.sum()))
 
     def _append(self, m: dict):
         self.episode_rewards.append(m["reward"])
@@ -328,8 +393,9 @@ class Trainer:
 
     def _record(self, m: dict):
         self._append(m)
-        self.plot()
-        self.save_curves()
+        if self.is_main:
+            self.plot()
+            self.save_curves()
 
     def run(self, online_evaluate: bool = True) -> dict:
         """The main loop (JAX trainer.py:494-563, reference
@@ -344,12 +410,13 @@ class Trainer:
                 self.save_model(evaluate_steps)
                 if online_evaluate:
                     self._record(self.evaluate())
-                print(f"Run {args.ith_run}, time_steps {time_steps}, "
-                      f"evaluate {evaluate_steps}, "
-                      f"elapsed {self.time_cost[-1]:.1f}s"
-                      + (f", success {self.success_rate[-1]:.3f}"
-                         if online_evaluate and self.success_rate else ""),
-                      flush=True)
+                if self.is_main:
+                    print(f"Run {args.ith_run}, time_steps {time_steps}, "
+                          f"evaluate {evaluate_steps}, "
+                          f"elapsed {self.time_cost[-1]:.1f}s"
+                          + (f", success {self.success_rate[-1]:.3f}"
+                             if online_evaluate and self.success_rate
+                             else ""), flush=True)
             time_steps += self.train_cycle()
         self.save_model("final")
         self.time_cost.append(time.time() - start)
@@ -381,10 +448,12 @@ class Trainer:
                 continue
             m = self.evaluate()
             self._append(m)
-            print(f"checkpoint {tag}: success {m['success_rate']:.3f}",
-                  flush=True)
-        self.plot()
-        self.save_curves()
+            if self.is_main:
+                print(f"checkpoint {tag}: success {m['success_rate']:.3f}",
+                      flush=True)
+        if self.is_main:
+            self.plot()
+            self.save_curves()
 
     # ------------------------------------------------------------------
     def plot(self):

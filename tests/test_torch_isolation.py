@@ -1,6 +1,7 @@
 """The port stands alone: ``marl_dmfb_tpu_torch``, ``chip_smoke.py`` and the
 card's tools (``tools/profile_torch_rollout.py``,
-``tools/profile_torch_learn.py``, ``tools/time_dmfb_step.py``)
+``tools/profile_torch_learn.py``, ``tools/profile_torch_mesh.py``,
+``tools/time_dmfb_step.py``)
 import nothing of JAX, its libraries, YAML, matplotlib or the JAX package
 (the GPU machine has none of them), nor the one JAX-side tool of the port,
 ``tools/export_flax_npz.py``, whose ``.npz`` files they read with numpy;
@@ -20,6 +21,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "yaml",
 PORT_FILES = sorted((ROOT / "marl_dmfb_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_rollout.py",
     ROOT / "tools" / "profile_torch_learn.py",
+    ROOT / "tools" / "profile_torch_mesh.py",
     ROOT / "tools" / "time_dmfb_step.py"]
 EXPORTER = ROOT / "tools" / "export_flax_npz.py"
 # the committed export of the 10x10-4d policy that the evaluation tests load
@@ -110,8 +112,40 @@ def test_scan_sees_the_whole_port():
                  "marl_dmfb_tpu_torch/train.py",
                  "marl_dmfb_tpu_torch/models/convert.py",
                  "marl_dmfb_tpu_torch/utils/platform.py",
+                 "marl_dmfb_tpu_torch/utils/benchmarking.py",
+                 "marl_dmfb_tpu_torch/parallel/mesh.py",
+                 "marl_dmfb_tpu_torch/parallel/distributed.py",
                  "tools/profile_torch_learn.py"):
         assert want in names
+
+
+def test_mesh_ranks_import_nothing_of_jax(tmp_path):
+    """``train --mesh=2`` and the ranks it starts (``torch.multiprocessing``
+    children, which inherit the environment) run with ``jax`` and
+    ``marl_dmfb_tpu`` made unimportable: a package of each name that raises
+    stands first on ``PYTHONPATH``."""
+    import os
+    import subprocess
+    import sys
+
+    poison = tmp_path / "poison"
+    for name in ("jax", "marl_dmfb_tpu"):
+        (poison / name).mkdir(parents=True)
+        (poison / name / "__init__.py").write_text(
+            f"raise ImportError('{name} imported by the port')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(poison), str(ROOT)]))
+    out = subprocess.run(
+        [sys.executable, "-m", "marl_dmfb_tpu_torch.train", "dmfb",
+         "--drop_num=2", "--fov=5", "--chip_size=5", "--exact_steps=40",
+         "--n_parallel_envs=2", "--mesh=2", "--evaluate_task=2",
+         "--buffer_size=8", "--batch_size=4", "--device=cpu",
+         f"--data_dir={tmp_path / 'run'}"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert "mesh: 2 devices, sharding env batch" in out.stdout
+    assert (tmp_path / "run" / "model" / "vdn" / "fov5"
+            / "0_final_state.pt").is_file()
 
 
 def test_scan_catches_a_forbidden_import(tmp_path):

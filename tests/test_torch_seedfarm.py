@@ -294,10 +294,24 @@ def test_farm_with_a_mesh_exits(tmp_path):
 
 
 def test_remat_farm_raises_naming_the_roadmap_entry(tmp_path):
-    """``torch.utils.checkpoint`` does not compose with ``torch.func.grad``:
-    the farm refuses ``--remat`` instead of dropping it."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 3"):
-        run(farm_args(tmp_path, seed=12, remat=True), 10)
+    """The farm takes ``--remat`` (its recomputation is an
+    ``autograd.Function`` that ``torch.func.grad`` and ``vmap`` take,
+    ``algos/qlearn.py:checkpoint``), and two cycles give the losses and
+    parameters of the farm without it, bitwise: the recomputation runs the
+    same operations on the same inputs.  (JAX's farm with ``--remat``:
+    ``tests/test_torch_seedfarm_learner.py``.)"""
+    farms = []
+    for remat in (False, True):
+        a = farm_args(tmp_path / str(remat), seed=12, remat=remat)
+        farm = seedfarm.SeedFarm(make_env_from_args(a), a, S)
+        for _ in range(2):
+            farm.train_cycle()
+        farms.append(farm)
+    plain, remat = farms
+    assert remat.learner.args.remat
+    assert torch.equal(torch.stack(plain.losses), torch.stack(remat.losses))
+    for k, v in plain.learner.params.items():
+        assert torch.equal(v, remat.learner.params[k]), k
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 against ``jax.vmap`` of the JAX package's ``learn`` (the JAX farm's
 learner, ``seedfarm.py:farm_cycle``), on the CPU: S learner states of
 ``PRNGKey(s)`` carried across by ``models/convert.py``, three updates on S
-random minibatches, for VDN, QMIX and Adam with ``--lr_decay``.
+random minibatches, for VDN, QMIX, Adam with ``--lr_decay``, ``--remat``
+(the farm's recomputation under ``torch.func``) and ``--fused_streams``
+with ``--remat``.
 
 Tolerances: ``tests/torch_learn_util.py``'s, per seed: the loss within
 rtol 1e-6; the params and target params within 1e-5, except elements whose
@@ -43,7 +45,9 @@ def _seed(tree, i):
     (),
     QMIX,
     (("lr_decay", True), ("n_steps", 60)),
-], ids=["vdn", "qmix", "lr_decay"])
+    (("remat", True),),
+    (("fused_streams", True), ("remat", True)),
+], ids=["vdn", "qmix", "lr_decay", "remat", "fused_remat"])
 def test_stacked_learner_matches_vmapped_jax_learn(items):
     J = jax_learner(items)
     ta = J.ta

@@ -6,6 +6,7 @@ checkpoint to ``evaluate --load_model``."""
 
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -52,17 +53,30 @@ def test_train_defaults_to_cuda_and_raises_without_it(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     "--mesh=4", "--local_sampling", "--vmap_seeds=2", "--fused_streams"])
-def test_unported_train_flags_raise(flag):
+def test_unported_train_flags_raise(flag, tmp_path):
+    """Every flag that was refused is ported: each parses to the JAX
+    CLI's value, and ``--fused_streams`` trains
+    (``tests/test_torch_mesh*.py`` train under ``--mesh`` and
+    ``--local_sampling``, ``tests/test_torch_fused_streams.py`` holds the
+    fused learner to JAX's).  The seed farm on a device mesh still exits,
+    as JAX train.py:39-48 does."""
+    argv = ["dmfb", flag]
+    t = tconfig.get_train_args(argv, pri=False)
+    j = jconfig.get_train_args(argv, pri=False)
+    for field in ("mesh", "local_sampling", "vmap_seeds", "fused_streams"):
+        assert getattr(t, field) == getattr(j, field), field
     if flag == "--vmap_seeds=2":
-        # the seed farm is ported; on a device mesh it is not, and exits as
-        # JAX train.py:39-48 does
-        assert tconfig.get_train_args(["dmfb", flag],
-                                      pri=False).vmap_seeds == 2
+        assert t.vmap_seeds == 2
         with pytest.raises(SystemExit, match="--mesh=off"):
             tconfig.get_train_args(["dmfb", flag, "--mesh=4"], pri=False)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tconfig.get_train_args(["dmfb", flag], pri=False)
+    elif flag == "--fused_streams":
+        trainer = train.main([
+            "dmfb", "--drop_num=2", "--fov=5", "--chip_size=5", flag,
+            "--exact_steps=40", "--n_parallel_envs=2", "--buffer_size=8",
+            "--batch_size=4", "--evaluate_task=2", "--device=cpu",
+            f"--data_dir={tmp_path}"])
+        assert trainer.args.fused_streams and trainer.learner.train_step
+        assert all(np.isfinite(float(x)) for x in trainer.losses)
 
 
 @pytest.mark.parametrize("name", ["dmfb", "meda"])

@@ -31,7 +31,6 @@ import argparse
 import os
 import subprocess
 import sys
-import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -44,6 +43,8 @@ from marl_dmfb_tpu_torch.config import (get_train_args,  # noqa: E402
 from marl_dmfb_tpu_torch.parallel.seedfarm import SeedFarm  # noqa: E402
 from marl_dmfb_tpu_torch.replay import sample, sample_stacked  # noqa: E402
 from marl_dmfb_tpu_torch.trainer import Trainer  # noqa: E402
+from marl_dmfb_tpu_torch.utils.benchmarking import (  # noqa: E402
+    timeit_dispatch)
 from marl_dmfb_tpu_torch.utils.platform import select_device  # noqa: E402
 
 
@@ -54,14 +55,11 @@ def _device_us(evt) -> float:
 
 
 def seconds(fn, reps: int) -> float:
-    """Host-clock seconds of ``reps`` calls of ``fn``, ending in a
-    synchronize."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    """Host-clock seconds of ``reps`` calls of ``fn`` back to back, ended by
+    draining the card and reading the last result on the host
+    (``utils/benchmarking.timeit_dispatch``)."""
+    per_call, _ = timeit_dispatch(fn, iters=reps, warmup=0)
+    return per_call * reps
 
 
 def report(fn, reps: int, what: str, top: int):

@@ -14,7 +14,6 @@ import argparse
 import os
 import subprocess
 import sys
-import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -27,6 +26,8 @@ from marl_dmfb_tpu_torch.evaluate import select_device  # noqa: E402
 from marl_dmfb_tpu_torch.models.networks import (  # noqa: E402
     build_agent_net, init_params)
 from marl_dmfb_tpu_torch.rollout import make_rollout  # noqa: E402
+from marl_dmfb_tpu_torch.utils.benchmarking import (  # noqa: E402
+    timeit_dispatch)
 
 
 def _device_us(evt) -> float:
@@ -69,11 +70,9 @@ def main(argv=None):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = rollout(res.env_states, g, eps, anneal, args.min_epsilon,
-                      greedy=opts.greedy)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall, res = timeit_dispatch(
+            lambda: rollout(res.env_states, g, eps, anneal, args.min_epsilon,
+                            greedy=opts.greedy), iters=1, warmup=0)
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type.name == "CUDA"]
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
