@@ -86,11 +86,20 @@ Phases, each printing its seconds:
    summing orders drift further, which is printed); every run keeps its
    params bitwise alike on its ranks and
    launches the kernel T times a cycle on each rank at B / n chips; ms per
-   cycle and each rank's ring bytes are printed.
+   cycle and each rank's ring bytes are printed;
+10. the measuring entry points through their ``main``, at their full
+   widths with their iteration counts cut (``BENCH_*``): ``bench`` (the
+   actor at B = 16384: DMFB, MEDA and bf16; each DMFB rollout launches the
+   kernel T times), ``bench_train`` at B = 1024 (the cycle that fills the
+   ring, 10 learner updates, one timed cycle of 512 updates; T launches a
+   cycle), ``bench_scaling`` over the visible cards and, where 4 are
+   visible, ``bench_multiproc``; each prints its JSON lines, and every
+   value must be finite and positive under its expected metric name.
 
 The kernel JSON line (the kernel's numbers), a training JSON line, a
-trained-policies JSON line, a MEDA/QMIX JSON line, a farm JSON line and a
-mesh JSON line come before the last,
+trained-policies JSON line, a MEDA/QMIX JSON line, a farm JSON line, a
+mesh JSON line and a bench JSON line (the entry points' lines) come before
+the last,
 ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is non-zero and no result line is printed.  Exits
 non-zero at once where CUDA is unavailable.  Writes nothing but the kernel
@@ -136,6 +145,9 @@ PARAM_ATOL = 1e-5
 NOISE = 1e-6
 TIMED_UPDATES = 10
 TIMED_CYCLES = 3
+# every in-process train.main run means one device: under the default
+# --mesh auto a machine with several cards would start a rank a card
+ONE_DEVICE = "--mesh=off"
 # phase 6: the committed exports of JAX-trained policies, and the success
 # rates artifacts/README.md records for them (greedy, 100 tasks); a rate
 # below the record less SUCCESS_SLACK (about 4 binomial sigma at 100 tasks)
@@ -219,6 +231,18 @@ MESH_B = 64
 MESH_CYCLES = 3
 MESH_ARGV = ["dmfb", "--drop_num=4", "--fov=9", f"--n_parallel_envs={MESH_B}",
              "--evaluate_task=100"]
+# phase 10: the measuring entry points at their full widths, only their
+# iteration counts cut: the actor at B = 16384 (DMFB, MEDA, bf16), the
+# training loop at B = 1024 (512 updates a cycle: the cycle that fills the
+# ring and one timed cycle), the scaling over the visible cards, and the
+# rank-count comparison where 4 cards are visible
+BENCH_ACTOR = (["16384"], ["16384", "0", "meda"],
+               ["16384", "0", "dmfb", "bf16"])
+BENCH_ACTOR_ITERS = 3
+BENCH_TRAIN_B = 1024
+BENCH_LEARN_ITERS = 10
+BENCH_SCALING_ITERS = 3
+BENCH_MULTIPROC_CARDS = 4
 
 
 def log(msg):
@@ -779,7 +803,8 @@ def meda_qmix(smi) -> dict:
         data_dir = os.path.join(ROOT, "build", f"chip_smoke_{name}")
         shutil.rmtree(data_dir, ignore_errors=True)
         argv = argv + [f"--exact_steps={steps}", "--evaluate_task=100",
-                       "--evaluate_cycle=1000000", f"--data_dir={data_dir}"]
+                       "--evaluate_cycle=1000000", f"--data_dir={data_dir}",
+                       ONE_DEVICE]
         trainer = learner = batch = None     # the last run's replay
         torch.cuda.synchronize()
         base = run_memory_start()
@@ -1009,7 +1034,8 @@ def seed_farm(smi) -> dict:
     data_dir = os.path.join(ROOT, "build", "chip_smoke_farm")
     shutil.rmtree(data_dir, ignore_errors=True)
     argv = FARM_ARGV + [f"--vmap_seeds={S}", f"--exact_steps={FARM_STEPS}",
-                        "--evaluate_cycle=1000000", f"--data_dir={data_dir}"]
+                        "--evaluate_cycle=1000000", f"--data_dir={data_dir}",
+                        ONE_DEVICE]
     torch.cuda.synchronize()
     base = run_memory_start()
     dmfb_step.launches = 0
@@ -1225,7 +1251,8 @@ def seed_farm(smi) -> dict:
             shutil.rmtree(rdir, ignore_errors=True)
             for k, steps in enumerate(budgets):
                 f = train.main(FARM_RESUME_ARGV + [
-                    f"--exact_steps={steps}", f"--data_dir={rdir}"]
+                    f"--exact_steps={steps}", f"--data_dir={rdir}",
+                    ONE_DEVICE]
                     + (["--load_model"] if k else []))
             runs[name] = f.save_curves()
     finally:
@@ -1509,6 +1536,108 @@ def data_parallel(smi) -> dict:
     return out
 
 
+def bench_line(line, want) -> dict:
+    """A checked line of an entry point: its metric ``want``, a finite
+    positive value, no TPU in its unit."""
+    if line["metric"] != want:
+        raise AssertionError(f"phase 10: {line['metric']}, expected {want}")
+    value = line["value"]
+    if not (isinstance(value, (int, float)) and math.isfinite(value)
+            and value > 0):
+        raise AssertionError(f"phase 10: {want} = {value}")
+    if re.search(r"tpu|v5e", line.get("unit", ""), re.IGNORECASE):
+        raise AssertionError(f"phase 10: {want}'s unit {line['unit']!r}")
+    return line
+
+
+def bench_entries(smi, T) -> dict:
+    """Phase 10: the port's measuring entry points on the card (``bench``,
+    ``bench_train``, ``bench_scaling``, and ``bench_multiproc`` where 4
+    cards are visible) through their ``main``; each prints its JSON lines,
+    each line is checked, and the actor's DMFB rollouts must launch the
+    kernel T times each (T = ``T``).  Raises on a failed check, returns the
+    lines and the launches."""
+    from marl_dmfb_tpu_torch import (bench, bench_multiproc, bench_scaling,
+                                     bench_train)
+    from marl_dmfb_tpu_torch.ops import dmfb_step
+
+    t10 = time.perf_counter()
+    dmfb_step.kernel_library()   # built before the ranks start
+    cards = torch.cuda.device_count()
+    out = {"lines": [], "launches": {}, "phase_s": {}}
+    for argv in BENCH_ACTOR:
+        t0 = time.perf_counter()
+        a = bench.parse(argv)
+        want = {"dmfb": "actor_env_steps_per_sec",
+                "meda": "actor_env_steps_per_sec_meda"}[a.env]
+        want += "_bf16" if a.dtype == "bf16" else ""
+        dmfb_step.launches = 0
+        line = bench_line(bench.main(argv, iters=BENCH_ACTOR_ITERS), want)
+        rollouts = BENCH_ACTOR_ITERS + 1
+        launches = dmfb_step.launches
+        if launches != (T * rollouts if a.env == "dmfb" else 0):
+            raise AssertionError(
+                f"phase 10: bench {' '.join(argv)} launched the kernel "
+                f"{launches} times in {rollouts} rollouts of T = {T}")
+        out["lines"].append(line)
+        out["launches"][want] = launches
+        out["phase_s"][want] = time.perf_counter() - t0
+        log(f"phase 10: [{smi}] bench {' '.join(argv)}: {line['value']:.0f} "
+            f"env-steps/s; kernel launches {launches} in {rollouts} "
+            f"rollouts (T = {T} each)")
+
+    t0 = time.perf_counter()
+    dmfb_step.launches = 0
+    lines = bench_train.main([str(BENCH_TRAIN_B)],
+                             learn_iters=BENCH_LEARN_ITERS, cycles=1,
+                             cycle_warmup=0)
+    names = ["learn_step_ms", "learn_step_tflops",
+             "train_loop_env_steps_per_sec", "train_e2e"]
+    if len(lines) != len(names):
+        raise AssertionError(f"phase 10: bench_train printed {lines}")
+    out["lines"] += [bench_line(x, w) for x, w in zip(lines, names)]
+    # the cycle that fills the ring and the timed one
+    out["launches"]["bench_train"] = dmfb_step.launches
+    if dmfb_step.launches != 2 * T:
+        raise AssertionError(f"phase 10: bench_train launched the kernel "
+                             f"{dmfb_step.launches} times in 2 cycles")
+    out["phase_s"]["bench_train"] = time.perf_counter() - t0
+    log(f"phase 10: [{smi}] bench_train B={BENCH_TRAIN_B}: "
+        + ", ".join(f"{x['metric']} {x['value']:.6g}" for x in lines))
+
+    t0 = time.perf_counter()
+    lines = bench_scaling.main([], iters=BENCH_SCALING_ITERS)
+    sizes = [n for n in bench_scaling.SIZES if n <= cards]
+    names = [f"actor_env_steps_per_sec_{n}dev" for n in sizes[:1]]
+    for n in sizes[1:]:
+        names += [f"actor_env_steps_per_sec_{n}dev",
+                  f"sharding_overhead_ratio_{n}dev"]
+    if [x["metric"] for x in lines] != names:
+        raise AssertionError(f"phase 10: bench_scaling printed {lines}")
+    out["lines"] += [bench_line(x, w) for x, w in zip(lines, names)]
+    out["phase_s"]["bench_scaling"] = time.perf_counter() - t0
+    log(f"phase 10: [{smi}] bench_scaling over {sizes} card(s)")
+
+    if cards >= BENCH_MULTIPROC_CARDS:
+        t0 = time.perf_counter()
+        lines = bench_multiproc.main([], cycles=1)
+        names = ["train_cycle_s_1rank", "train_cycle_s_2rank",
+                 "multiproc_efficiency", "train_cycle_s_2rank_local_sampling",
+                 "train_cycle_s_4rank"]
+        timed = [x for x in lines
+                 if x["metric"] != "collective_bytes_per_update"]
+        if len(timed) != len(names) or len(lines) != len(names) + 2:
+            raise AssertionError(f"phase 10: bench_multiproc printed {lines}")
+        out["lines"] += [bench_line(x, w) for x, w in zip(timed, names)]
+        out["phase_s"]["bench_multiproc"] = time.perf_counter() - t0
+    else:
+        log(f"phase 10: bench_multiproc not run: it compares 1, 2 and 4 "
+            f"NCCL ranks, and {cards} card(s) are visible")
+    out["phase_s"]["total"] = time.perf_counter() - t10
+    log(f"phase 10: {out['phase_s']['total']:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1680,7 +1809,7 @@ def main() -> int:
     targv = ["dmfb", "--drop_num=4", "--fov=9",
              f"--n_parallel_envs={TRAIN_B}", f"--exact_steps={TRAIN_STEPS}",
              f"--evaluate_cycle={TRAIN_EVAL_CYCLE}", "--evaluate_task=100",
-             f"--data_dir={data_dir}"]
+             f"--data_dir={data_dir}", ONE_DEVICE]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dmfb_step.launches = 0
@@ -1789,6 +1918,7 @@ def main() -> int:
     phase7 = meda_qmix(smi)
     phase8 = seed_farm(smi)
     phase9 = data_parallel(smi)
+    phase10 = bench_entries(smi, T)
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     log(smi)
@@ -1829,6 +1959,8 @@ def main() -> int:
         "farm_batch": phase8["train"]["batch"],
         "launches_mesh_rank": phase9["gloo2"]["launches"],
         "mesh_rank_batch": MESH_B // 2,
+        "launches_bench_actor": phase10["launches"]["actor_env_steps_per_sec"],
+        "launches_bench_train": phase10["launches"]["bench_train"],
     }]}))
     log(json.dumps({"train": {
         "cycles": cycles, "updates": updates,
@@ -1843,6 +1975,7 @@ def main() -> int:
     log(json.dumps({"meda_qmix": phase7, "device": smi}))
     log(json.dumps({"farm": phase8, "device": smi}))
     log(json.dumps({"mesh": phase9, "device": smi}))
+    log(json.dumps({"bench": phase10, "device": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

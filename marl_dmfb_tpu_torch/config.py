@@ -17,7 +17,9 @@ Deviations from the JAX CLI:
   (``checkpoint.py``).
 * ``--mesh <n>`` runs n processes, one per device, in a
   ``torch.distributed`` group (``train.py`` starts them, or a launcher
-  such as ``torchrun`` did); the seed farm on a mesh exits as JAX's does
+  such as ``torchrun`` did), and ``--mesh auto`` (the default) one a card
+  where several cards are visible, as JAX's shards over every device;
+  the seed farm on a mesh exits as JAX's does
   (:func:`refuse_unported`); ``--scan_unroll`` is accepted and ignored.
 """
 
@@ -268,7 +270,10 @@ def _common_parser() -> argparse.ArgumentParser:
                    help="data-parallel devices: a count n (one process "
                         "per device, the env batch and the replay ring "
                         "split by rows, parameters replicated), 'auto' "
-                        "(the launcher's process group, if any) or 'off'")
+                        "(the launcher's process group, if any; else one "
+                        "rank a card where several cards are visible, as "
+                        "JAX shards over every device) or 'off' (one "
+                        "device)")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bf16"],
                    help="net matmul/conv precision: bf16 rounds their "
@@ -282,7 +287,8 @@ def _common_parser() -> argparse.ArgumentParser:
 def refuse_unported(args: Args) -> Args:
     """Exit for the flags that do not go together, as the JAX CLI does: the
     seed farm runs on one device (JAX train.py:39-48)."""
-    if args.mesh not in ("auto", "off") and args.vmap_seeds > 1:
+    if (args.vmap_seeds > 1 and args.mesh not in ("auto", "off")
+            and int(args.mesh) > 1):
         raise SystemExit("--vmap_seeds runs on one device; use --mesh=off")
     return args
 

@@ -64,6 +64,17 @@ def requested_size(flag: str) -> Optional[int]:
     return max(1, int(flag))
 
 
+def auto_size(device) -> int:
+    """The ranks that ``--mesh auto`` starts in a process that no launcher
+    started: every visible card when ``device`` is CUDA and more than one
+    is visible (JAX shards over all of ``jax.devices()``), else 1.  The
+    CPU counts as one device here, as JAX's CPU platform shows one."""
+    if (torch.device(device).type == "cuda" and torch.cuda.is_available()
+            and torch.cuda.device_count() > 1):
+        return torch.cuda.device_count()
+    return 1
+
+
 def visible_devices(device) -> int:
     """Devices that ranks on ``device``'s type can take: the CUDA cards, or
     the CPU's cores."""
@@ -85,7 +96,8 @@ def mesh_from_flag(flag: str, device) -> Optional[Mesh]:
 
     * ``off`` (or a count below 2): no mesh;
     * ``auto``: the process group when one with more than one rank is up,
-      else no mesh;
+      else no mesh (``train.py`` starts one rank a card first where several
+      cards are visible, :func:`auto_size`);
     * ``<n>``: the process group, which must have n ranks (``train.py``
       starts them when it was launched alone)."""
     n = requested_size(flag)

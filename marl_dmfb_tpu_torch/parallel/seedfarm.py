@@ -76,7 +76,8 @@ from marl_dmfb_tpu_torch.models.networks import (StackedNet, build_agent_net,
 from marl_dmfb_tpu_torch.replay import (ReplayState, init_replay,
                                         store_stacked)
 from marl_dmfb_tpu_torch.rollout import RolloutNoise, make_rollout
-from marl_dmfb_tpu_torch.trainer import NET_CONFIG, curve_dir, curve_prefix
+from marl_dmfb_tpu_torch.trainer import (NET_CONFIG, curve_dir, curve_prefix,
+                                         updates_per_rollout)
 from marl_dmfb_tpu_torch.utils.platform import disable_tf32
 
 EVAL_SEED_OFFSET = 1 << 31   # seed i's evaluation stream: offset + seed + i
@@ -158,8 +159,7 @@ class SeedFarm:
         self.anneal_per_step = (
             (args.epsilon - args.min_epsilon) / args.anneal_steps * self.B
             if args.epsilon_anneal_scale == "step" else 0.0)
-        self.updates_per_rollout = max(
-            1, round(args.train_time * self.B / args.n_episodes))
+        self.updates_per_rollout = updates_per_rollout(args, self.B)
         # the rollouts take chips that _draws has reset, seed by seed
         reset = env._replace(reset=lambda states, generator: states)
         H, last = args.rnn_hidden_dim, args.last_action

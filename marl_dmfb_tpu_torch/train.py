@@ -27,7 +27,12 @@ Data parallelism (``parallel/``): one process per device.  Under a launcher
 the launcher's group on ``cuda:LOCAL_RANK`` (or the CPU); ``--mesh n`` in a
 process started alone starts n ranks itself, rank r on ``cuda:r`` (or the
 CPU under ``--device cpu``), NCCL on the card and gloo on the CPU, and
-raises when fewer than n devices are visible.
+raises when fewer than n devices are visible.  ``--mesh auto``, the
+default, is JAX's: in a process started alone on a machine with more than
+one visible card it starts one rank a card, as ``--mesh n`` does with n the
+count, and ``--vmap_seeds`` exits there; with one card, or on the CPU, it
+trains on one device.  Pass ``--mesh=off`` for one device on a machine with
+several cards.
 """
 
 from __future__ import annotations
@@ -38,8 +43,9 @@ from marl_dmfb_tpu_torch.parallel.distributed import (backend_for,
                                                       init_distributed,
                                                       launched, rank_devices,
                                                       spawn)
-from marl_dmfb_tpu_torch.parallel.mesh import (Mesh, check_visible,
-                                               mesh_from_flag, requested_size)
+from marl_dmfb_tpu_torch.parallel.mesh import (Mesh, auto_size,
+                                               check_visible, mesh_from_flag,
+                                               requested_size)
 from marl_dmfb_tpu_torch.parallel.seedfarm import SeedFarm
 from marl_dmfb_tpu_torch.trainer import Trainer
 from marl_dmfb_tpu_torch.utils.platform import select_device
@@ -47,13 +53,18 @@ from marl_dmfb_tpu_torch.utils.platform import select_device
 
 def main(argv=None):
     """CLI entry; returns the trainer (the farm under ``--vmap_seeds``)
-    after its run, or None where it started the ranks of ``--mesh n``."""
+    after its run, or None where it started the ranks of ``--mesh``."""
     args = get_train_args(argv)
     if launched():
         args.device = str(init_distributed(select_device(args.device)))
     else:
         n = requested_size(args.mesh)
-        if n is not None and n > 1:
+        if n is None:
+            n = auto_size(args.device)
+            if n > 1 and args.vmap_seeds > 1:   # JAX train.py:39-44
+                raise SystemExit("--vmap_seeds runs on one device; use "
+                                 "--mesh=off")
+        if n > 1:
             check_visible(n, args.device)
             select_device(args.device)
             spawn(_rank, rank_devices(args.device, n),

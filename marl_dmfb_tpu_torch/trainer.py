@@ -116,6 +116,12 @@ def _tile(n: int, mesh: Optional[Mesh], what: str) -> int:
     return up
 
 
+def updates_per_rollout(args: Args, B: int) -> int:
+    """The updates a cycle of B episodes takes: the reference's updates per
+    collected episode (JAX trainer.py:256-257, bench_train.py:74)."""
+    return max(1, round(args.train_time * B / args.n_episodes))
+
+
 class Trainer:
     def __init__(self, env: Env, args: Args, eval_only: bool = False,
                  mesh: Optional[Mesh] = None):
@@ -178,8 +184,7 @@ class Trainer:
         self.anneal_per_step = (
             (args.epsilon - args.min_epsilon) / args.anneal_steps * B
             if args.epsilon_anneal_scale == "step" else 0.0)
-        self.updates_per_rollout = max(
-            1, round(args.train_time * B / args.n_episodes))
+        self.updates_per_rollout = updates_per_rollout(args, B)
 
         # --param_ema: evaluation and checkpoints use a moving average of
         # the params (the agent's and the mixer's), updated once a cycle

@@ -3,7 +3,8 @@ CPU: the composed path (rollout -> store -> ``learn_many``, two cycles) on
 2 gloo ranks (``tests/torch_mesh_worker.composed``) against JAX's on a
 2-device mesh of the 8 virtual CPU devices of ``tests/conftest.py``, for
 the global ring and for ``--local_sampling``, VDN and QMIX (whose global
-states travel with their episodes).
+states travel with their episodes), DMFB v0.1 (float observations in a
+float ring, gathered as bytes like the int8 ones) and ``--fused_streams``.
 
 JAX's draws are replayed: the rollouts' through ``noise=``, the global
 minibatches' indices (``split(key, K)``, ``randint``) through ``idx=``,
@@ -118,7 +119,9 @@ def _run_jax(items, local):
 
 @pytest.mark.parametrize("items,local", [
     (MESH, False), (MESH + (("local_sampling", True),), True),
-    (QMIX + MESH, False)], ids=["global", "local_sampling", "qmix"])
+    (QMIX + MESH, False), (MESH + (("version", "0.1"),), False),
+    (MESH + (("fused_streams", True),), False)],
+    ids=["global", "local_sampling", "qmix", "v01", "fused_streams"])
 def test_two_ranks_match_jax_mesh(items, local, tmp_path):
     ta, start, cycles, want = _run_jax(items, local)
     state = from_flax_learner_state(start)

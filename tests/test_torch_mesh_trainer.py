@@ -285,6 +285,57 @@ def test_mesh_flag_needs_its_devices(monkeypatch):
         mesh_lib.mesh_from_flag("2", "cpu")
 
 
+def _cards(monkeypatch, n):
+    """``n`` visible cards, in a process that no launcher started;
+    ``train.spawn`` and ``train.run`` record their calls instead of
+    running."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.delenv("MARL_DMFB_DISTRIBUTED", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+    calls = {"spawn": [], "run": []}
+    monkeypatch.setattr(train, "spawn", lambda fn, devices, backend, args:
+                        calls["spawn"].append((list(devices), backend)))
+    monkeypatch.setattr(train, "run", lambda args, mesh=None:
+                        calls["run"].append(mesh))
+    return calls
+
+
+@pytest.mark.parametrize("cards,argv,spawned", [
+    (2, ["--mesh=auto"], (["cuda:0", "cuda:1"], "nccl")),
+    (4, [], ([f"cuda:{r}" for r in range(4)], "nccl")),
+    (1, ["--mesh=auto"], None),
+    (2, ["--mesh=off"], None),
+    (2, ["--mesh=off", "--vmap_seeds=2"], None),
+    (2, ["--mesh=1", "--vmap_seeds=2"], None),
+    (2, ["--mesh=auto", "--device=cpu"], None),
+], ids=["auto-2-cards", "default-4-cards", "auto-1-card", "off-2-cards",
+        "off-farm", "one-farm", "auto-cpu"])
+def test_mesh_auto_starts_a_rank_a_card(monkeypatch, cards, argv, spawned):
+    """``--mesh auto`` (the default) in a process started alone is JAX's
+    ``mesh_from_flag("auto")``: one rank a visible card, under NCCL, where
+    more than one card is visible, as ``--mesh n`` starts them; no mesh
+    with one card, on the CPU (its cores are not counted), or under
+    ``--mesh=off`` or ``--mesh=1``, where the seed farm runs."""
+    calls = _cards(monkeypatch, cards)
+    assert train.main(["dmfb", *argv]) is None
+    if spawned is None:
+        assert calls == {"spawn": [], "run": [None]}
+    else:
+        assert calls == {"spawn": [spawned], "run": []}
+
+
+def test_mesh_auto_farm_on_several_cards_exits(monkeypatch):
+    """``--vmap_seeds`` under ``auto`` with several cards visible exits
+    before starting a rank, naming ``--mesh=off`` (JAX train.py:39-44)."""
+    calls = _cards(monkeypatch, 2)
+    with pytest.raises(SystemExit, match="--mesh=off"):
+        train.main(["dmfb", "--vmap_seeds=2"])
+    assert calls == {"spawn": [], "run": []}
+    assert mesh_lib.auto_size("cuda") == 2
+    assert mesh_lib.auto_size("cpu") == 1
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
