@@ -7,16 +7,19 @@ NVIDIA GPU.
 Phases, each printing its seconds:
 
 0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-1. build the env-step kernel (``csrc/dmfb_step.cu``) with nvcc for sm_90a
-   and print each instantiation's registers, spills and shared memory from
-   the ptxas log; the 4-droplet one (the main path's) must not spill;
+1. build the env-step kernels, the tile kernel (``csrc/dmfb_step.cu``)
+   and the wide kernel (``csrc/dmfb_step_wide.cu``), with two nvcc runs at
+   once for sm_90a and print each instantiation's registers, spills and
+   shared memory from the ptxas logs; the tile kernel's 4-droplet ones (the
+   main path's) must not spill;
 2. hold the kernel against its plain PyTorch version on the card (integer,
    bool and usage outputs bitwise equal, rewards within 1e-5) at three
    shapes, three chained steps each;
 3. drive the evaluate entry point (DMFB 10x10, 4 droplets, fov 9, CRNN at
    the evaluation width) on the committed export of the JAX package's
    trained 10x10-4d policy, and check that the env step went through the
-   kernel once per step (T = 40 launches); then run a small greedy rollout
+   tile kernel once per step (T = 40 launches) and never through the wide
+   kernel; then run a small greedy rollout
    of that policy on the card and on the CPU from the same chips and draws,
    which must give the same episodes;
 4. time one epsilon-greedy actor rollout at B = 16384 chips, checking that
@@ -94,9 +97,25 @@ Phases, each printing its seconds:
    ring, 10 learner updates, one timed cycle of 512 updates; T launches a
    cycle), ``bench_scaling`` over the visible cards and, where 4 are
    visible, ``bench_multiproc``; each prints its JSON lines, and every
-   value must be finite and positive under its expected metric name.
+   value must be finite and positive under its expected metric name;
+11. the wide kernel, which steps every configuration that the tile kernel
+   does not take (more than 16 droplets, or a chip beyond shared memory):
+   (a) against its plain version (bitwise, rewards within 1e-5) over 3
+   chained steps, with observations and without, from views at offset 0
+   and 1, at 20x20-20d, 10x10-13d (JAX's cap, the lattice fallback),
+   50x50-64d, 40x40-130d (ids past 127), 200x200-4d, 160x160-4d,
+   160x160-10d and 10x10-4d, where it must also equal the tile kernel;
+   (b) its time (CUDA events around a CUDA graph) beside its byte bound at
+   20x20-20d and 10x10-13d (B = 16384), 50x50-64d (B = 4096), 160x160-4d
+   and 200x200-4d (B = 1024), and the plain version's; (c) the evaluate
+   entry point with the flagship export at 20 droplets on 20x20 (100
+   tasks) and at 4 droplets on 200x200 (T = 800), and ``train`` at 4
+   droplets on 160x160 at the CLI's net widths with a small ring, 2 cycles,
+   each launching the wide kernel T times a rollout and the tile kernel
+   never, with finite losses; and a greedy rollout of the flagship at
+   20x20-20d on the card equal to the same rollout on the CPU.
 
-The kernel JSON line (the kernel's numbers), a training JSON line, a
+The kernel JSON line (both kernels' numbers), a training JSON line, a
 trained-policies JSON line, a MEDA/QMIX JSON line, a farm JSON line, a
 mesh JSON line and a bench JSON line (the entry points' lines) come before
 the last,
@@ -107,6 +126,8 @@ build, the training runs' checkpoints and curves and the sweeps' arrays
 under ``build/``.
 """
 
+import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -244,6 +265,29 @@ BENCH_LEARN_ITERS = 10
 BENCH_SCALING_ITERS = 3
 BENCH_MULTIPROC_CARDS = 4
 
+# phase 11: the wide kernel.  Shapes held to the plain version, (width,
+# droplets, blocks, B); shapes timed, (width, droplets, B), at least the B
+# whose byte bound is some 50 us; the plain version timed over PLAIN_ITERS
+# calls (it takes milliseconds a call at these shapes)
+WIDE_CMP = [(20, 20, 2, 1024), (10, 13, 0, 1024), (50, 64, 0, 256),
+            (40, 130, 0, 64), (200, 4, 2, 64), (160, 4, 0, 64),
+            (160, 10, 2, 64), (10, 4, 2, 4096)]
+WIDE_TIMED = [(20, 20, 16384), (10, 13, 16384), (50, 64, 4096),
+              (160, 4, 1024), (200, 4, 1024)]
+PLAIN_ITERS = 4
+FLAGSHIP = os.path.join(WEIGHTS, "dmfb_20x20_4d_fov9_vdn_b64")
+WIDE_EVAL = [  # (name, drop_num, board, tasks)
+    ("20x20_20d", 20, 20, 100), ("200x200_4d", 4, 200, 4)]
+WIDE_GREEDY_B = 16
+# training at 160x160 (T = 640) at the CLI's nets: 8 chips a rollout (4
+# updates a cycle), a ring of 32 episodes (20 MB of observations) and
+# minibatches of 8, 2 cycles
+WIDE_TRAIN_B = 8
+WIDE_TRAIN_ARGV = ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=160",
+                   f"--n_parallel_envs={WIDE_TRAIN_B}", "--buffer_size=32",
+                   "--batch_size=8", f"--exact_steps={2 * WIDE_TRAIN_B * 640}",
+                   f"--evaluate_task={WIDE_TRAIN_B}", ONE_DEVICE]
+
 
 def log(msg):
     print(msg, flush=True)
@@ -358,20 +402,37 @@ def step_inputs(params, batch, generator):
     return a, u
 
 
+@contextlib.contextmanager
+def forced(dmfb_step, kernel):
+    """Within the block ``dmfb_step``'s wrappers launch ``kernel``
+    (``"tile"`` or ``"wide"``) whatever the shape; None: their own choice."""
+    choose = dmfb_step.kernel_for
+    if kernel is not None:
+        dmfb_step.kernel_for = lambda params, observe=True: kernel
+    try:
+        yield
+    finally:
+        dmfb_step.kernel_for = choose
+
+
 def compare_kernel(tdmfb, dmfb_step, params, batch, generator,
-                   observe=True):
-    """Three chained steps, kernel vs plain (the transition alone without
+                   observe=True, kernel=None, state=None, reference=None):
+    """Three chained steps from ``state`` (default: ``random_states``), the
+    kernel that ``kernel`` names (default: ``kernel_for``'s choice) vs
+    ``reference`` (default: the plain version; the transition alone without
     ``observe``); returns the largest absolute difference over all
     outputs."""
-    s = random_states(tdmfb, params, batch, generator)
+    s = random_states(tdmfb, params, batch, generator) if state is None \
+        else state
     worst = 0.0
-    kernel = dmfb_step.step_batch if observe else dmfb_step.transition_batch
-    plain = tdmfb.step_core if observe else tdmfb.transition
+    step = dmfb_step.step_batch if observe else dmfb_step.transition_batch
+    plain = reference or (tdmfb.step_core if observe else tdmfb.transition)
     outs = ("obs",) * observe + ("dones", "terminated", "constraints",
                                  "success", "rewards", "team_reward")
     for _ in range(3):
         a, u = step_inputs(params, batch, generator)
-        sk, ok = kernel(params, s, a, u)
+        with forced(dmfb_step, kernel):
+            sk, ok = step(params, s, a, u)
         sp, op = plain(params, s, a, u)
         torch.cuda.synchronize()
         if not observe and ok.obs is not None:
@@ -391,6 +452,31 @@ def compare_kernel(tdmfb, dmfb_step, params, batch, generator,
                     f"{int((x != y).sum())} elements)")
         s = sk
     return worst
+
+
+def greedy_card_vs_cpu(env, net, hidden, chips, seed) -> int:
+    """The same greedy rollout of ``net`` on the card (the kernels) and on
+    the CPU (the plain step), from the same ``chips`` fresh tasks and move
+    draws; returns the episodes whose observations and success are
+    identical.  Leaves ``net`` on the CPU."""
+    from marl_dmfb_tpu_torch.rollout import RolloutNoise, make_rollout
+
+    T = env.episode_limit
+    gc = torch.Generator(device="cuda").manual_seed(seed)
+    reset = env.reset(env.init(chips, gc, "cuda"), gc)
+    uniforms = torch.rand((T, chips, env.n_agents), generator=gc,
+                          device="cuda")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        start = type(reset)(*(x.to(dev) for x in reset))
+        denv = env._replace(reset=lambda s, gen: start)
+        roll = make_rollout(denv, net.to(dev), hidden)
+        res[dev] = roll(start, None, 0.0, 0.0, 0.0, greedy=True,
+                        noise=RolloutNoise(None, None, uniforms.to(dev)))
+    same = (res["cuda"].episodes["o_ext"].cpu()
+            == res["cpu"].episodes["o_ext"]).flatten(1).all(1)
+    same &= res["cuda"].success.cpu() == res["cpu"].success
+    return int(same.sum())
 
 
 def compare_learner(make_learner, state, batch, updates=None):
@@ -1638,6 +1724,162 @@ def bench_entries(smi, T) -> dict:
     return out
 
 
+def wide_params(tdmfb, width, n, blocks=0):
+    """A square board of ``width`` with ``n`` droplets, fov 9; the lattice
+    fallback's warning of the crowded boards is expected."""
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return tdmfb.DMFBParams(width=width, length=width, n_droplets=n,
+                                n_blocks=blocks, fov=9)
+
+
+def counted(dmfb_step, fn):
+    """``fn()`` with both kernels' launch counts set to 0 just before;
+    returns its result and the (tile, wide) counts just after."""
+    dmfb_step.launches = dmfb_step.launches_wide = 0
+    out = fn()
+    return out, (dmfb_step.launches, dmfb_step.launches_wide)
+
+
+def wide_kernel(smi) -> dict:
+    """Phase 11: the wide kernel on the card (module docstring); raises on
+    any failed check, returns the numbers."""
+    from marl_dmfb_tpu_torch import evaluate, train
+    from marl_dmfb_tpu_torch.config import (get_evaluate_args,
+                                            make_env_from_args)
+    from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
+    from marl_dmfb_tpu_torch.ops import dmfb_step
+    from marl_dmfb_tpu_torch.trainer import Trainer, restore_net_config
+
+    t11 = time.perf_counter()
+    out = {"max_abs_err": 0.0, "timed": [], "phase_s": {}}
+    g = torch.Generator(device="cuda").manual_seed(1111)
+
+    # (a) against the plain version, both modes, views at offsets 0 and 1
+    t0 = time.perf_counter()
+    for width, n, blocks, batch in WIDE_CMP:
+        p = wide_params(tdmfb, width, n, blocks)
+        s = random_states(tdmfb, p, batch + 1, g)
+        errs = []
+        for observe in (True, False):
+            for offset in (0, 1):
+                view = tdmfb.DMFBState(*(t[offset:offset + batch] for t in s))
+                errs.append(compare_kernel(tdmfb, dmfb_step, p, batch, g,
+                                           observe, "wide", view))
+        if dmfb_step.kernel_for(p) == "tile":   # a shape both kernels take
+            errs.append(compare_kernel(tdmfb, dmfb_step, p, batch, g, True,
+                                       "wide",
+                                       reference=dmfb_step.step_batch))
+        out["max_abs_err"] = max(out["max_abs_err"], *errs)
+        log(f"phase 11: {width}x{width}-{n}d, {blocks} blocks, B={batch} "
+            f"({dmfb_step.kernel_for(p)} kernel's shape, workspace "
+            f"{dmfb_step.wide_workspace_bytes(p)} bytes): wide == plain over "
+            f"3 steps, with and without observations, offsets 0 and 1"
+            + (", and == the tile kernel" if len(errs) > 4 else "")
+            + f" (max |diff| {max(errs):.3g})")
+    out["phase_s"]["compare"] = time.perf_counter() - t0
+
+    # (b) times beside the byte bound
+    t0 = time.perf_counter()
+    for width, n, batch in WIDE_TIMED:
+        p = wide_params(tdmfb, width, n)
+        s = random_states(tdmfb, p, 4 * batch, g)
+        sets = [(tdmfb.DMFBState(*(t[i * batch:(i + 1) * batch] for t in s)),
+                 *step_inputs(p, batch, g)) for i in range(4)]
+        with forced(dmfb_step, "wide"):
+            ms = device_ms([lambda x=x: dmfb_step.step_batch(p, *x)
+                            for x in sets])
+        plain_ms = device_ms([lambda x=x: tdmfb.step_core(p, *x)
+                              for x in sets], iters=PLAIN_ITERS)
+        bound_ms, bound_by, n_bytes, n_ops = bound(dmfb_step, p, batch)
+        out["timed"].append(dict(
+            shape=f"{width}x{width}-{n}d", batch=batch, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            share=bound_ms / ms))
+        log(f"phase 11: [{smi}] dmfb_step_wide {width}x{width}-{n}d at "
+            f"B={batch}: kernel {ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+            f"({bound_by}: {n_bytes} bytes, {n_ops} ops), "
+            f"{100 * bound_ms / ms:.1f}% of the bound")
+        del s, sets
+    out["phase_s"]["timed"] = time.perf_counter() - t0
+
+    # (c) the entry points on shapes only the wide kernel takes
+    t0 = time.perf_counter()
+    out["launches"] = {}
+    for name, drop_num, board, tasks in WIDE_EVAL:
+        argv = ["dmfb", f"--drop_num={drop_num}", "--fov=9",
+                f"--chip_size={board}", f"--evaluate_task={tasks}",
+                "--load_model_name=0_final", f"--data_dir={FLAGSHIP}"]
+        t1 = time.perf_counter()
+        m, (tiles, wides) = counted(dmfb_step, lambda: evaluate.main(argv))
+        args = get_evaluate_args(argv)
+        restore_net_config(args, "final")
+        env = make_env_from_args(args)
+        T = env.episode_limit
+        if dmfb_step.kernel_for(env.params) != "wide" or (tiles, wides) != (
+                0, T):
+            raise AssertionError(f"evaluate {name} launched the tile kernel "
+                                 f"{tiles} and the wide kernel {wides} "
+                                 f"times, expected 0 and T = {T}")
+        if not (all(math.isfinite(v) for v in m.values())
+                and 0 < m["steps"] <= T and 0.0 <= m["success_rate"] <= 1.0):
+            raise AssertionError(f"evaluate {name} returned {m}")
+        out["launches"][f"eval_{name}"] = wides
+        out[f"eval_{name}"] = dict(m, seconds=time.perf_counter() - t1)
+        log(f"phase 11: [{smi}] evaluate {name} ({tasks} tasks): success "
+            f"{m['success_rate']}, steps {m['steps']}, reward "
+            f"{m['reward']:.4f}, wide kernel launches {wides} (T = {T}), "
+            f"tile kernel {tiles}, {time.perf_counter() - t1:.2f} s")
+        if name == "20x20_20d":
+            policy = Trainer(env, args, eval_only=True)
+            policy.load_model("final", params_only=True)
+            same = greedy_card_vs_cpu(env, policy.net.eval(),
+                                      args.rnn_hidden_dim, WIDE_GREEDY_B, 11)
+            log(f"phase 11: greedy rollout of {WIDE_GREEDY_B} chips at "
+                f"20x20-20d, card vs CPU: {same}/{WIDE_GREEDY_B} episodes "
+                f"identical")
+            if same != WIDE_GREEDY_B:
+                raise AssertionError("the card's rollout at 20x20-20d "
+                                     "departs from the CPU's")
+    out["phase_s"]["evaluate"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    data_dir = os.path.join(ROOT, "build", "chip_smoke_wide_train")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    trainer, (tiles, wides) = counted(dmfb_step, lambda: train.main(
+        WIDE_TRAIN_ARGV + [f"--data_dir={data_dir}"]))
+    targs, T = trainer.args, trainer.env.episode_limit
+    cycles, evals = trainer.n_cycles, len(trainer.success_rate)
+    width = (targs.hyper_hidden_dim, targs.rnn_hidden_dim, trainer.B,
+             trainer.updates_per_rollout)
+    if width != (24, 128, WIDE_TRAIN_B, 4):
+        raise AssertionError(f"phase 11 trained at (conv, hidden, B, "
+                             f"updates a cycle) = {width}")
+    if (tiles, wides) != (0, T * (cycles + evals)):
+        raise AssertionError(
+            f"training launched the tile kernel {tiles} and the wide kernel "
+            f"{wides} times, expected 0 and T x ({cycles} training + "
+            f"{evals} evaluation rollouts)")
+    losses = torch.stack(trainer.losses).cpu()
+    if len(losses) != cycles or not bool(losses.isfinite().all()):
+        raise AssertionError(f"losses {losses.tolist()}")
+    out["launches"]["train_160x160_4d"] = wides
+    out["train_160x160_4d"] = dict(cycles=cycles, evaluations=evals,
+                                   losses=losses.tolist(),
+                                   seconds=time.perf_counter() - t0)
+    log(f"phase 11: [{smi}] train 160x160-4d (T = {T}): {cycles} cycles of "
+        f"B={WIDE_TRAIN_B}, {trainer.learner.train_step} updates, losses "
+        f"{[round(x, 4) for x in losses.tolist()]}, wide kernel launches "
+        f"{wides} = T x ({cycles} + {evals}), tile kernel {tiles}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    out["phase_s"]["train"] = time.perf_counter() - t0
+    out["phase_s"]["total"] = time.perf_counter() - t11
+    log(f"phase 11: {out['phase_s']['total']:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1652,7 +1894,7 @@ def main() -> int:
     from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
     from marl_dmfb_tpu_torch.models.networks import build_agent_net
     from marl_dmfb_tpu_torch.ops import _build, dmfb_step
-    from marl_dmfb_tpu_torch.rollout import RolloutNoise, make_rollout
+    from marl_dmfb_tpu_torch.rollout import make_rollout
 
     t_all = time.perf_counter()
 
@@ -1666,17 +1908,22 @@ def main() -> int:
         f"({time.perf_counter() - t0:.2f} s)")
     torch.cuda.set_device(0)
 
-    # --- 1: build ---
+    # --- 1: build both kernels, one nvcc each, at once ---
     t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        built, built_wide = pool.map(_build.build,
+                                     ("dmfb_step", "dmfb_step_wide"))
     dmfb_step.kernel_library()
-    built = _build.build("dmfb_step")
-    log(f"phase 1: built {os.path.relpath(built.path, ROOT)} in "
-        f"{built.seconds:.2f} s of nvcc")
+    dmfb_step.wide_library()
+    for b in (built, built_wide):
+        log(f"phase 1: built {os.path.relpath(b.path, ROOT)} in "
+            f"{b.seconds:.2f} s of nvcc")
     ptxas = ptxas_summary(built.log)
-    for entry, info in ptxas.items():
+    ptxas_wide = ptxas_summary(built_wide.log)
+    for entry, info in {**ptxas, **ptxas_wide}.items():
         log(f"  ptxas: {entry}: {info}")
-    # the 4-droplet instantiations: with observations (the main path's) and
-    # without (the v0.1 path's); neither may spill
+    # the tile kernel's 4-droplet instantiations: with observations (the
+    # main path's) and without (the v0.1 path's); neither may spill
     main4 = {mode: [info for entry, info in ptxas.items()
                     if f"ILi4ELb{int(mode)}E" in entry]
              for mode in (True, False)}
@@ -1686,6 +1933,14 @@ def main() -> int:
             raise AssertionError(
                 f"the 4-droplet instantiation (observe={mode}) spills or was "
                 f"not found in the ptxas log: {found}")
+    # the wide kernel: one warp or four a chip, each mode
+    wide = {(warps, mode): [info for entry, info in ptxas_wide.items()
+                            if f"wide_kernelILi{32 * warps}ELb{int(mode)}E"
+                            in entry]
+            for warps in (1, 4) for mode in (True, False)}
+    if any(len(found) != 1 for found in wide.values()):
+        raise AssertionError(f"the wide kernel's instantiations in the "
+                             f"ptxas log: {wide}")
     log(f"phase 1: {time.perf_counter() - t0:.2f} s")
 
     # --- 2: kernel vs plain version ---
@@ -1706,49 +1961,34 @@ def main() -> int:
     t0 = time.perf_counter()
     argv = ["dmfb", "--drop_num=4", "--fov=9", "--evaluate_task=100",
             f"--data_dir={POLICY_4D}"]
-    dmfb_step.launches = 0
+    dmfb_step.launches = dmfb_step.launches_wide = 0
     m = evaluate.main(argv)
-    launches = dmfb_step.launches
+    launches, launches_wide = dmfb_step.launches, dmfb_step.launches_wide
     args = get_evaluate_args(argv)
     restore_net_config(args, "final")
     env = make_env_from_args(args)
     T = env.episode_limit
-    if launches != T:
-        raise AssertionError(f"evaluate launched the kernel {launches} "
-                             f"times, expected {T} (one per step)")
+    if launches != T or launches_wide:
+        raise AssertionError(f"evaluate launched the tile kernel {launches} "
+                             f"times, expected {T} (one per step), and the "
+                             f"wide kernel {launches_wide} times, expected 0")
     if not (all(math.isfinite(v) for v in m.values())
             and 0 < m["steps"] <= T and 0.0 <= m["success_rate"] <= 1.0):
         raise AssertionError(f"evaluate returned {m}")
     log(f"phase 3: evaluate: success {m['success_rate']}, steps "
         f"{m['steps']}, reward {m['reward']:.4f}, kernel launches "
-        f"{launches} (T = {T}); conv width {args.hyper_hidden_dim}")
+        f"{launches} (T = {T}), wide kernel {launches_wide}; conv width "
+        f"{args.hyper_hidden_dim}")
 
     # the same greedy rollout of the policy on the card (kernel) and the CPU
     # (plain)
     policy = Trainer(env, args, eval_only=True)
     policy.load_model("final", params_only=True)
     net = policy.net.eval()
-    gc = torch.Generator(device="cuda").manual_seed(7)
-    small = env.init(64, gc, "cuda")
-    reset = env.reset(small, gc)
-    noise = RolloutNoise(None, None,
-                         torch.rand((T, 64, env.n_agents), generator=gc,
-                                    device="cuda"))
-    res = {}
-    for dev in ("cuda", "cpu"):
-        to = lambda x: x.to(dev)
-        chips = type(reset)(*map(to, reset))
-        denv = env._replace(reset=lambda s, gen: chips)
-        roll = make_rollout(denv, net.to(dev), args.rnn_hidden_dim)
-        res[dev] = roll(chips, None, 0.0, 0.0, 0.0, greedy=True,
-                        noise=RolloutNoise(None, None,
-                                           noise.env_uniforms.to(dev)))
-    same = (res["cuda"].episodes["o_ext"].cpu()
-            == res["cpu"].episodes["o_ext"]).flatten(1).all(1)
-    same &= res["cuda"].success.cpu() == res["cpu"].success
+    same = greedy_card_vs_cpu(env, net, args.rnn_hidden_dim, 64, 7)
     log(f"phase 3: greedy rollout of 64 chips, card vs CPU: "
-        f"{int(same.sum())}/64 episodes identical")
-    if not bool(same.all()):
+        f"{same}/64 episodes identical")
+    if same != 64:
         raise AssertionError("the card's rollout departs from the CPU's")
     log(f"phase 3: {time.perf_counter() - t0:.2f} s")
 
@@ -1762,15 +2002,16 @@ def main() -> int:
     warm = rollout(chips, ga, 1.0, anneal, args.min_epsilon)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    dmfb_step.launches = 0
+    dmfb_step.launches = dmfb_step.launches_wide = 0
     t1 = time.perf_counter()
     res = rollout(warm.env_states, ga, 1.0, anneal, args.min_epsilon)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
     launches_actor = dmfb_step.launches
-    if launches_actor != T:
-        raise AssertionError(f"the actor rollout launched the kernel "
-                             f"{launches_actor} times, expected {T}")
+    if launches_actor != T or dmfb_step.launches_wide:
+        raise AssertionError(f"the actor rollout launched the tile kernel "
+                             f"{launches_actor} times, expected {T}, and "
+                             f"the wide kernel {dmfb_step.launches_wide}")
     peak = torch.cuda.max_memory_allocated()
     executed = int((~res.episodes["padded"]).sum())
     log(f"phase 4: [{smi}] epsilon-greedy rollout, B={KERNEL_B}, T={T}: "
@@ -1919,6 +2160,7 @@ def main() -> int:
     phase8 = seed_farm(smi)
     phase9 = data_parallel(smi)
     phase10 = bench_entries(smi, T)
+    phase11 = wide_kernel(smi)
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     log(smi)
@@ -1961,6 +2203,25 @@ def main() -> int:
         "mesh_rank_batch": MESH_B // 2,
         "launches_bench_actor": phase10["launches"]["actor_env_steps_per_sec"],
         "launches_bench_train": phase10["launches"]["bench_train"],
+    }, {
+        "name": "dmfb_step_wide",
+        "route": "cuda",
+        "source": "marl_dmfb_tpu_torch/csrc/dmfb_step_wide.cu",
+        "replaces": "marl_dmfb_tpu/ops/dmfb_step_pallas.py:44",
+        "launches": phase11["launches"]["eval_20x20_20d"],
+        "launches_eval_200x200_4d": phase11["launches"]["eval_200x200_4d"],
+        "launches_train_160x160_4d": phase11["launches"]["train_160x160_4d"],
+        "max_abs_err": phase11["max_abs_err"],
+        "ms": phase11["timed"][0]["ms"],
+        "plain_ms": phase11["timed"][0]["plain_ms"],
+        "bound_ms": phase11["timed"][0]["bound_ms"],
+        "bound_by": phase11["timed"][0]["bound_by"],
+        "library_ms": None,
+        "shape": phase11["timed"][0]["shape"],
+        "batch": phase11["timed"][0]["batch"],
+        "timed": phase11["timed"],
+        "ptxas": {f"{32 * warps}_threads_{'obs' if mode else 'no_obs'}":
+                  found[0] for (warps, mode), found in wide.items()},
     }]}))
     log(json.dumps({"train": {
         "cycles": cycles, "updates": updates,
@@ -1976,6 +2237,9 @@ def main() -> int:
     log(json.dumps({"farm": phase8, "device": smi}))
     log(json.dumps({"mesh": phase9, "device": smi}))
     log(json.dumps({"bench": phase10, "device": smi}))
+    log(json.dumps({"wide": {k: v for k, v in phase11.items()
+                             if k not in ("timed", "launches")},
+                    "device": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

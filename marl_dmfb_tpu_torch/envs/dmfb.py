@@ -523,7 +523,9 @@ def observe_v0(params: DMFBParams, state: DMFBState) -> torch.Tensor:
     pos, goal = state.pos, state.goal
     batch, device = pos.shape[0], pos.device
     rows = torch.arange(fov, device=device)
-    ids = torch.arange(1, n + 1, dtype=torch.int32, device=device)
+    # JAX takes the ids as int8 before the max: id 128 wraps to -128 and
+    # loses to the 0s of the droplets elsewhere, 256 wraps to 0
+    ids = torch.arange(1, n + 1, device=device).to(torch.int8).int()
     origin = pos - hf                                       # (B, N, 2)
 
     def paint(cells, values):
@@ -560,8 +562,9 @@ def observe_v0(params: DMFBParams, state: DMFBState) -> torch.Tensor:
 def global_state(params: DMFBParams, state: DMFBState) -> torch.Tensor:
     """(B, 3*W*L) int8: the board of droplet ids, the board of goal ids
     (each cell the sum of the ids on it, as the JAX package's one-hot
-    contraction) and the blocks — the QMIX mixer's state (JAX
-    dmfb.py:715-734, which gives the same values in float32)."""
+    contraction) and the blocks — the QMIX mixer's state as the JAX
+    package's int8 ring stores it (JAX dmfb.py:715-734 gives float32,
+    which the ring's conversion saturates at 127, replay.py:74, 118)."""
     ids = torch.arange(1, params.n_droplets + 1, dtype=torch.int32,
                        device=state.pos.device)
     xs = torch.arange(params.width, device=state.pos.device)
@@ -575,4 +578,4 @@ def global_state(params: DMFBParams, state: DMFBState) -> torch.Tensor:
 
     boards = torch.stack([id_board(state.pos), id_board(state.goal),
                           state.block_mask.int()], dim=1)
-    return boards.reshape(boards.shape[0], -1).to(torch.int8)
+    return boards.reshape(boards.shape[0], -1).clamp(max=127).to(torch.int8)

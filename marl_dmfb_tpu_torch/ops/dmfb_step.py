@@ -1,20 +1,26 @@
-"""Wrapper of the fused DMFB step kernel (``csrc/dmfb_step.cu``).
+"""Wrapper of the fused DMFB step kernels (``csrc/dmfb_step.cu`` and
+``csrc/dmfb_step_wide.cu``).
 
 Replaces the Pallas TPU kernel of ``marl_dmfb_tpu/ops/dmfb_step_pallas.py``
 (``_make_kernel``, :44-219, through ``pallas_step_batch``).  Unlike the JAX
 package, where the XLA step was the production path and the Pallas kernel a
-reference, the port takes this kernel as its production env step.
+reference, the port takes these kernels as its production env step.
 
 :func:`step_batch` takes a batched :class:`DMFBState`, actions and
 move-success draws, and returns what ``envs.dmfb.step_core`` returns.  On
-CPU tensors it runs that plain version; on CUDA tensors it launches the
-kernel (built on first use) or raises.  The kernel computes the v0
-observation; for the v0.1 observation it runs in its no-observation mode
-(the transition alone, :func:`transition_batch`, whose plain version is
-``envs.dmfb.transition``), and the plain v0.1 ``observe`` follows on the
-new state, as the JAX package observes after ``step_core``.  ``launches``
-counts kernel launches in either mode, ``launches_no_obs`` those in the
-no-observation mode.
+CPU tensors it runs that plain version; on CUDA tensors it launches a
+kernel (built on first use) or raises.  Two hand kernels compute the step,
+chosen by shape (:func:`kernel_for`): the tile kernel, which stages tiles
+of up to 16 chips in shared memory, for at most ``MAX_DROPLETS`` droplets
+and a chip that fits there (every shipped configuration); the wide kernel,
+one block per chip, for everything else that ``DMFBParams`` accepts.  Both
+compute the v0 observation; for the v0.1 observation they run in their
+no-observation mode (the transition alone, :func:`transition_batch`, whose
+plain version is ``envs.dmfb.transition``), and the plain v0.1 ``observe``
+follows on the new state, as the JAX package observes after ``step_core``.
+``launches`` counts the tile kernel's launches in either mode,
+``launches_no_obs`` those in its no-observation mode, ``launches_wide``
+the wide kernel's launches in either mode.
 """
 
 from __future__ import annotations
@@ -26,15 +32,25 @@ import torch
 from marl_dmfb_tpu_torch.envs import dmfb
 from marl_dmfb_tpu_torch.ops import _build
 
-launches = 0         # kernel launches since import (reset by callers
+launches = 0         # tile kernel launches since import (reset by callers
 launches_no_obs = 0  # that count); of them, no-observation launches
+launches_wide = 0    # wide kernel launches since import
 
-MAX_DROPLETS = 16  # the kernel's compile-time bound (kMaxDroplets)
+MAX_DROPLETS = 16  # the tile kernel's compile-time bound (kMaxDroplets)
 SMEM_LIMIT = 227 * 1024   # a block's dynamic shared memory on sm_90 (kSmemLimit)
 MAX_TILE = 16      # chips per tile at most (kMaxTile)
 FILL_TILES = 264   # tiles that give each of an H100's 132 SMs two
+# the wide kernel's workspace in shared memory at most (kWideSmemLimit);
+# a larger one goes to a global scratch buffer
+WIDE_SMEM_LIMIT = 227 * 1024 - 1024
+WIDE_ROW_BYTES = 8192    # observation rows it stages at a time (kRowBytes)
+# its blocks on one SM at most: 2048 threads over a block of 128; a scratch
+# buffer holds a workspace for each block of the grid
+WIDE_BLOCKS_PER_SM = 16
 
 _ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 9 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+_WIDE_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
@@ -97,13 +113,18 @@ def min_bytes(params: dmfb.DMFBParams, batch: int,
               observe: bool = True) -> int:
     """Least bytes one step of ``batch`` chips must move through device
     memory: every input read once and every output written once (the v0
-    observations only with ``observe``), except the health board, which the
-    step reads only under the N droplets, one 32-byte sector each."""
+    observations only with ``observe``), except the health board and the
+    block mask.  The step reads health only under the N droplets, one
+    32-byte sector each, and the block mask only under their N candidate
+    cells and, with ``observe``, in the fov rows of its [0, fov)^2 corner,
+    one sector each; neither is written."""
     n, wl = params.n_droplets, params.width * params.length
+    corner = params.fov if observe else 0
     read = (8 * n + 4 * n + 8 * n          # pos, dist, goal
-            + 4 * wl + wl                  # usage, block_mask
+            + 4 * wl                       # usage
             + 4 * n + 4 * n + 4 + 4        # actions, uniforms, counters
-            + min(4 * wl, 32 * n))         # health under the droplets
+            + min(4 * wl, 32 * n)          # health under the droplets
+            + min(wl, 32 * (n + corner)))  # block_mask, as it is read
     write = (8 * n + 4 * n + 4 * wl + 4 + 4       # the new state
              + n * _obs_row(params, observe)      # obs
              + 4 * n + n                          # rewards, dones
@@ -111,28 +132,76 @@ def min_bytes(params: dmfb.DMFBParams, batch: int,
     return batch * (read + write)                 # constraints, success
 
 
-def kernel_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel; set its C signature."""
-    lib = _build.build("dmfb_step").lib
-    fn = lib.dmfb_step_launch
+def kernel_for(params: dmfb.DMFBParams, observe: bool = True) -> str:
+    """The kernel that steps ``params`` on the card: ``"tile"`` for at most
+    ``MAX_DROPLETS`` droplets and a chip whose tile fits in shared memory,
+    else ``"wide"``.  The batch does not enter: the tile kernel takes any
+    batch where it takes one chip."""
+    if (params.n_droplets <= MAX_DROPLETS
+            and tile_bytes(params, 1, observe) <= SMEM_LIMIT):
+        return "tile"
+    return "wide"
+
+
+def wide_rows(params: dmfb.DMFBParams) -> int:
+    """Observation rows the wide kernel stages at a time (``chunk_rows``):
+    as many as fit in ``WIDE_ROW_BYTES``, at least one."""
+    return min(params.n_droplets,
+               max(1, WIDE_ROW_BYTES // _obs_row(params, True)))
+
+
+def _wide_spans(params: dmfb.DMFBParams, observe: bool = True) -> list:
+    """Bytes of each span of one chip's workspace in the wide kernel, in
+    the order of ``workspace`` in ``csrc/dmfb_step_wide.cu``: the occupancy
+    count map, the past and new cells, the goals, the candidate cells, the
+    past and new distances, the flags, the rewards, the usage at the past
+    and candidate cells, and with ``observe`` the block mask's corner
+    [0, fov)^2 and the staged observation rows (16 bytes spare, to match
+    their alignment in device memory)."""
+    n, f2 = params.n_droplets, params.fov * params.fov
+    rows = wide_rows(params) * _obs_row(params, True) + 16
+    return [params.width * params.length, 8 * n, 8 * n, 8 * n, 8 * n,
+            4 * n, 4 * n, n, 4 * n, 8 * n] + ([f2, rows] if observe
+                                              else [0, 0])
+
+
+def wide_workspace_bytes(params: dmfb.DMFBParams,
+                         observe: bool = True) -> int:
+    """One chip's workspace in the wide kernel, each span rounded up to 16
+    bytes: dynamic shared memory up to ``WIDE_SMEM_LIMIT``, else a slice of
+    the global scratch buffer."""
+    return sum(-(-b // 16) * 16 for b in _wide_spans(params, observe))
+
+
+def _library(name: str, launch: str, argtypes: list) -> ctypes.CDLL:
+    lib = _build.build(name).lib
+    fn = getattr(lib, launch)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
 
+def kernel_library() -> ctypes.CDLL:
+    """Build (if needed) and load the tile kernel; set its C signature."""
+    return _library("dmfb_step", "dmfb_step_launch", _ARGTYPES)
+
+
+def wide_library() -> ctypes.CDLL:
+    """Build (if needed) and load the wide kernel; set its C signature."""
+    return _library("dmfb_step_wide", "dmfb_step_wide_launch",
+                    _WIDE_ARGTYPES)
+
+
 def _check(params: dmfb.DMFBParams, state: dmfb.DMFBState,
            actions: torch.Tensor, uniforms: torch.Tensor):
-    """Raise unless every tensor has the kernel's dtype, shape, device and a
+    """Raise unless every tensor has the kernels' dtype, shape, device and a
     contiguous layout."""
     B = state.pos.shape[0] if state.pos.dim() == 3 else -1
     N, W, L = params.n_droplets, params.width, params.length
     if B < 1:
         raise ValueError(f"pos must be (B, N, 2) with B >= 1, got "
                          f"{tuple(state.pos.shape)}")
-    if N > MAX_DROPLETS:
-        raise ValueError(f"the kernel takes at most {MAX_DROPLETS} droplets, "
-                         f"got {N}")
     expect = {
         "pos": (state.pos, torch.int32, (B, N, 2)),
         "goal": (state.goal, torch.int32, (B, N, 2)),
@@ -171,9 +240,9 @@ def _on_card(params: dmfb.DMFBParams, state: dmfb.DMFBState,
 
 def step_batch(params: dmfb.DMFBParams, state: dmfb.DMFBState,
                actions: torch.Tensor, uniforms: torch.Tensor):
-    """One DMFB step of B chips (transition and observation): the kernel on
-    CUDA, the plain version on the CPU.  Returns ``(new_state,
-    StepOutput)``."""
+    """One DMFB step of B chips (transition and observation): on CUDA the
+    kernel that :func:`kernel_for` names, on the CPU the plain version.
+    Returns ``(new_state, StepOutput)``."""
     v0 = params.obs_version == "v0"
     if not _on_card(params, state, actions, uniforms):
         return dmfb.step_core(params, state, actions, uniforms)
@@ -182,30 +251,37 @@ def step_batch(params: dmfb.DMFBParams, state: dmfb.DMFBState,
     # tensors' device, whichever device the caller has made current
     with torch.cuda.device(state.pos.device):
         if v0:
-            return _launch(params, state, actions, uniforms, True)
-        new_state, out = _launch(params, state, actions, uniforms, False)
+            return _launch(params, state, actions, uniforms, True,
+                           kernel_for(params, True))
+        new_state, out = _launch(params, state, actions, uniforms, False,
+                                 kernel_for(params, False))
         return new_state, out._replace(obs=dmfb.observe(params, new_state))
 
 
 def transition_batch(params: dmfb.DMFBParams, state: dmfb.DMFBState,
                      actions: torch.Tensor, uniforms: torch.Tensor):
-    """The transition alone (``StepOutput.obs`` is None): the kernel's
-    no-observation mode on CUDA, ``envs.dmfb.transition`` on the CPU."""
+    """The transition alone (``StepOutput.obs`` is None): the
+    no-observation mode of the kernel that :func:`kernel_for` names on CUDA,
+    ``envs.dmfb.transition`` on the CPU."""
     if not _on_card(params, state, actions, uniforms):
         return dmfb.transition(params, state, actions, uniforms)
     with torch.cuda.device(state.pos.device):
-        return _launch(params, state, actions, uniforms, False)
+        return _launch(params, state, actions, uniforms, False,
+                       kernel_for(params, False))
 
 
 def _launch(params: dmfb.DMFBParams, state: dmfb.DMFBState,
-            actions: torch.Tensor, uniforms: torch.Tensor, observe: bool):
-    """Launch the kernel on the current device, which holds the tensors;
-    without ``observe`` it writes no observations (``obs`` is None)."""
-    global launches, launches_no_obs
+            actions: torch.Tensor, uniforms: torch.Tensor, observe: bool,
+            kernel: str):
+    """Launch ``kernel`` (``"tile"`` or ``"wide"``) on the current device,
+    which holds the tensors; without ``observe`` it writes no observations
+    (``obs`` is None)."""
+    global launches, launches_no_obs, launches_wide
+    if kernel not in ("tile", "wide"):
+        raise ValueError(f"no dmfb_step kernel {kernel!r}")
     device = state.pos.device
     B, N = state.dist.shape
-    tile = tile_chips(params, B, observe)
-    fn = kernel_library().dmfb_step_launch
+    wide = kernel == "wide"
     empty = lambda shape, dtype: torch.empty(shape, dtype=dtype,
                                              device=device)
     pos = empty((B, N, 2), torch.int32)
@@ -223,21 +299,35 @@ def _launch(params: dmfb.DMFBParams, state: dmfb.DMFBState,
     team = empty((B,), torch.float32)
     rcp_x, rcp_y = params.zoom_reciprocals()
     ptr = lambda t: 0 if t is None else t.data_ptr()
-    rc = fn(
-        ptr(state.pos), ptr(state.dist), ptr(state.goal), ptr(state.health),
-        ptr(state.usage), ptr(state.block_mask), ptr(actions), ptr(uniforms),
-        ptr(state.step_count), ptr(state.cum_constraints),
-        ptr(pos), ptr(dist), ptr(usage), ptr(step_count),
-        ptr(cum_constraints), ptr(rewards), ptr(obs), ptr(dones),
-        ptr(terminated), ptr(constraints), ptr(success), ptr(team),
-        B, params.width, params.length, N, params.fov, int(params.stall),
-        params.max_step, tile, int(observe), rcp_x, rcp_y,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    tensors = [ptr(t) for t in (
+        state.pos, state.dist, state.goal, state.health, state.usage,
+        state.block_mask, actions, uniforms, state.step_count,
+        state.cum_constraints, pos, dist, usage, step_count, cum_constraints,
+        rewards, obs, dones, terminated, constraints, success, team)]
+    sizes = [B, params.width, params.length, N, params.fov,
+             int(params.stall), params.max_step]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if wide:
+        workspace = wide_workspace_bytes(params, observe)
+        slots = min(B, WIDE_BLOCKS_PER_SM * torch.cuda.get_device_properties(
+            device).multi_processor_count)
+        scratch = (empty((slots, workspace), torch.uint8)
+                   if workspace > WIDE_SMEM_LIMIT else None)
+        rc = wide_library().dmfb_step_wide_launch(
+            *tensors, ptr(scratch), slots, *sizes, int(observe), rcp_x,
+            rcp_y, stream)
+    else:
+        rc = kernel_library().dmfb_step_launch(
+            *tensors, *sizes, tile_chips(params, B, observe), int(observe),
+            rcp_x, rcp_y, stream)
     if rc != 0:
-        raise RuntimeError(f"dmfb_step kernel launch failed: CUDA error {rc}")
-    launches += 1
-    launches_no_obs += not observe
+        raise RuntimeError(f"dmfb_step{'_wide' * wide} kernel launch "
+                           f"failed: CUDA error {rc}")
+    if wide:
+        launches_wide += 1
+    else:
+        launches += 1
+        launches_no_obs += not observe
     new_state = state._replace(pos=pos, dist=dist, usage=usage,
                                step_count=step_count,
                                cum_constraints=cum_constraints)

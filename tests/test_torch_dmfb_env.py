@@ -6,6 +6,7 @@ the two packages cannot share)."""
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -23,13 +24,29 @@ CONFIGS = [
     (20, 4, 2),    # zoom scale 16/6: rounding ties off the 10x10 board
     (20, 10, 0),
     (20, 2, 2),
+    (20, 20, 0),   # above the tile kernel's 16 droplets
+    (10, 13, 0),   # JAX's cap on 10x10: the lattice fallback
+    (200, 4, 0),   # one chip beyond the tile kernel's shared memory
 ]
+# the 200x200 episode is cut to 40 of its 800 lockstep steps, to keep the
+# test short: a step's code does not depend on the step count but through
+# the limit, which the 10x10 and 20x20 boards reach
+STEP_CAP = {200: 40}
+
+
+def _lattice_warning(width, n):
+    """Expect the lattice warning where the board is too crowded for
+    random task generation (both packages warn)."""
+    if tdmfb._spacing_p_valid(width, width, n) < 1e-6:
+        return pytest.warns(UserWarning, match="lattice")
+    return _null()
 
 
 @pytest.mark.parametrize("width,n,blocks", CONFIGS)
 def test_lockstep_full_episode(width, n, blocks):
-    jp, tp = params_pair(width=width, length=width, n_droplets=n,
-                         n_blocks=blocks, fov=9)
+    with _lattice_warning(width, n):
+        jp, tp = params_pair(width=width, length=width, n_droplets=n,
+                             n_blocks=blocks, fov=9)
     B = 8
     rng = np.random.RandomState(width * 100 + n * 10 + blocks)
     js = jax_states(jp, B, seed=n + blocks, rng=rng)
@@ -38,13 +55,49 @@ def test_lockstep_full_episode(width, n, blocks):
         np.array(jax.vmap(functools.partial(jdmfb.observe, jp))(js)),
         tdmfb.observe(tp, ts).numpy())
     jstep = jax_step_fn(jp)
-    for t in range(jp.max_step):
+    for t in range(STEP_CAP.get(width, jp.max_step)):
         acts = rng.randint(0, 5, (B, n)).astype(np.int32)
         unis = rng.rand(B, n).astype(np.float32)
         js, jo = jstep(js, acts, unis)
         ts, to = tdmfb.step_core(tp, ts, torch.from_numpy(acts),
                                  torch.from_numpy(unis))
         assert_step_equal(js, jo, ts, to, where=f"at step {t}")
+
+
+@pytest.mark.parametrize("n", [120, 130])
+def test_observe_matches_jax_above_127_droplets(n):
+    """Droplet ids past 127 in the v0 observation: JAX takes the max over
+    ids already cast to int8, so id 128 wraps negative and loses to the 0s
+    of the droplets elsewhere.  40x40 holds up to 186 droplets; 120 is
+    below the wrap, 130 past it.  Only the observation is compared: JAX's
+    unrolled step at 130 droplets compiles too slowly for this suite."""
+    with _lattice_warning(40, n):
+        jp, tp = params_pair(width=40, length=40, n_droplets=n, fov=9)
+    js = jax_states(jp, 4, seed=n)
+    want = np.array(jax.jit(jax.vmap(functools.partial(jdmfb.observe, jp)))(
+        js))
+    got = tdmfb.observe(tp, to_torch_state(js)).numpy()
+    np.testing.assert_array_equal(want, got)
+    # some observer sees a droplet of id 128 or more: the layers then hold
+    # a wrapped id or lose it to a 0
+    pos = np.array(js.pos)
+    near = np.abs(pos[:, :, None] - pos[:, None]).max(-1) <= jp.fov // 2
+    assert near[:, :, 127:].any() == (n > 127)
+
+
+def test_global_state_matches_jax_ring_above_127_droplets():
+    """The QMIX state's int8 ids as JAX's ring stores them: JAX builds the
+    state in float32 and the ring's ``astype(int8)`` (replay.py:118)
+    saturates ids past 127 at 127."""
+    with _lattice_warning(40, 130):
+        jp, tp = params_pair(width=40, length=40, n_droplets=130, fov=9)
+    js = jax_states(jp, 4, seed=5)
+    want = np.array(jax.jit(lambda s: jax.vmap(functools.partial(
+        jdmfb.global_state, jp))(s).astype(jnp.int8))(js))
+    got = tdmfb.global_state(tp, to_torch_state(js))
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(want, got.numpy())
+    assert (want == 127).sum() > 2 * 4, "ids 127-130 on both id boards"
 
 
 def test_zoom_matches_jax_on_many_boards():

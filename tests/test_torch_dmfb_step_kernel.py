@@ -1,15 +1,17 @@
-"""The env-step kernel's module (``marl_dmfb_tpu_torch/ops/dmfb_step.py``):
+"""The env-step kernels' module (``marl_dmfb_tpu_torch/ops/dmfb_step.py``):
 its plain version against the Pallas TPU kernel it replaces (interpret mode
-on the CPU), the wrapper's CPU dispatch and input checks, the build's
-failure mode, and — on a machine with a card — the CUDA kernel against the
-plain version, with its observations and in its no-observation mode (the
-transition alone, which the v0.1 observation follows).
+on the CPU), the wrapper's CPU dispatch, its choice between the tile and
+the wide kernel and its input checks, the build's failure mode, and — on a
+machine with a card — both CUDA kernels against the plain version, with
+their observations and in their no-observation mode (the transition alone,
+which the v0.1 observation follows).
 
 JAX is imported inside the tests that need it, so that the card's machine,
 which has no JAX, can run the ``cuda`` test of this file:
 ``python -m pytest --noconftest -m cuda tests/test_torch_dmfb_step_kernel.py``.
 """
 
+import contextlib
 import types
 
 import numpy as np
@@ -35,7 +37,7 @@ def interpret_pallas(monkeypatch):
 
 
 @pytest.mark.parametrize("width,n,blocks", [(10, 2, 0), (10, 4, 2),
-                                            (20, 4, 0)])
+                                            (20, 4, 0), (20, 20, 0)])
 def test_plain_matches_pallas_kernel(interpret_pallas, width, n, blocks):
     import marl_dmfb_tpu.ops.dmfb_step_pallas as pk
     from tests.torch_port_util import (assert_step_equal, jax_states,
@@ -116,6 +118,9 @@ def test_wrapper_rejects_bad_inputs(field, bad, err):
 
 
 def test_wrapper_rejects_other_devices_and_too_many_droplets():
+    """Other devices are refused; droplet counts past the tile kernel's 16
+    are not (the wide kernel takes them on the card): on CPU tensors they
+    run the plain version."""
     p, s, a, u = _cpu_inputs()
     meta = tdmfb.DMFBState(*(t.to("meta") for t in s))
     with pytest.raises(ValueError, match="device"):
@@ -123,10 +128,18 @@ def test_wrapper_rejects_other_devices_and_too_many_droplets():
     with pytest.raises(ValueError, match="on meta"):
         dmfb_step.step_batch(p, s, a.to("meta"), u)
     p17 = tdmfb.DMFBParams(width=20, length=20, n_droplets=17)
-    s17 = tdmfb.init(p17, 2, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(ValueError, match="at most 16"):
-        dmfb_step.step_batch(p17, s17, torch.zeros((2, 17), dtype=torch.int32),
-                             torch.zeros((2, 17)))
+    g = torch.Generator().manual_seed(0)
+    s17 = tdmfb.init(p17, 2, g, "cpu")
+    a17 = torch.randint(0, 5, (2, 17), generator=g, dtype=torch.int32)
+    u17 = torch.rand((2, 17), generator=g)
+    before = (dmfb_step.launches, dmfb_step.launches_wide)
+    s1, o1 = dmfb_step.step_batch(p17, s17, a17, u17)
+    s2, o2 = tdmfb.step_core(p17, s17, a17, u17)
+    assert (dmfb_step.launches, dmfb_step.launches_wide) == before
+    for x, y in zip(tuple(s1) + tuple(o1), tuple(s2) + tuple(o2)):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="no dmfb_step kernel"):
+        dmfb_step._launch(p, s, a, u, True, "plain")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -141,23 +154,33 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
-@pytest.mark.parametrize("kw,batch,expect", [
+@pytest.mark.parametrize("kw,batch,expect,expect_no_obs", [
     # the main config at the actor batch: 748 bytes read and 1469 written
-    # per chip
-    (dict(), 16384, 36_323_328),
+    # per chip; without observations 4 rows of 245 fewer
+    (dict(), 16384, 36_323_328, 16384 * (2217 - 4 * 245)),
     # 20x20, 10 droplets, fov 9, by hand: read pos 80 + dist 40 + goal 80
-    # + usage 1600 + block 400 + actions 40 + uniforms 40 + counters 8
-    # + health 10 sectors of 32 = 2608; write pos 80 + dist 40 + usage 1600
-    # + counters 8 + obs 10*245 + rewards 40 + dones 10 + team 4
-    # + terminated 1 + constraints 4 + success 4 = 4241
-    (dict(width=20, length=20, n_droplets=10), 1000, 1000 * (2608 + 4241)),
+    # + usage 1600 + block 400 (fewer than 10 + 9 sectors of 32)
+    # + actions 40 + uniforms 40 + counters 8 + health 10 sectors of 32
+    # = 2608; write pos 80 + dist 40 + usage 1600 + counters 8
+    # + obs 10*245 + rewards 40 + dones 10 + team 4 + terminated 1
+    # + constraints 4 + success 4 = 4241.  Without observations the block
+    # mask is read under the 10 candidate cells alone: 320 bytes, not 400
+    (dict(width=20, length=20, n_droplets=10), 1000, 1000 * (2608 + 4241),
+     1000 * (2608 - 80 + 4241 - 2450)),
+    # 200x200, 4 droplets, fov 9: read pos 32 + dist 16 + goal 32
+    # + usage 160000 + actions 16 + uniforms 16 + counters 8 + health 4
+    # sectors + block 4 + 9 sectors (the candidate cells, the corner rows)
+    # = 160664; write pos 32 + dist 16 + usage 160000 + counters 8
+    # + obs 4*245 + rewards 16 + dones 4 + team 4 + terminated 1
+    # + constraints 4 + success 4 = 161069; without observations 9
+    # sectors and 980 bytes fewer
+    (dict(width=200, length=200, n_droplets=4), 1, 160664 + 161069,
+     160664 - 288 + 161069 - 980),
 ])
-def test_min_bytes(kw, batch, expect):
+def test_min_bytes(kw, batch, expect, expect_no_obs):
     p = tdmfb.DMFBParams(**kw)
     assert dmfb_step.min_bytes(p, batch) == expect
-    # without the observations: the same less N * (3 fov^2 + 2) per chip
-    assert dmfb_step.min_bytes(p, batch, observe=False) == (
-        expect - batch * p.n_droplets * p.obs_dim)
+    assert dmfb_step.min_bytes(p, batch, observe=False) == expect_no_obs
 
 
 def _layout_spans_from_source():
@@ -186,6 +209,7 @@ def test_tile_bytes_mirrors_the_kernel_layout(kw):
     src = (_build.CSRC / "dmfb_step.cu").read_text()
     assert "kSmemLimit = 227 * 1024;" in src
     assert dmfb_step.SMEM_LIMIT == 227 * 1024
+    # the dispatch's threshold is the tile kernel's bound
     assert f"kMaxDroplets = {dmfb_step.MAX_DROPLETS};" in src
     assert f"kMaxTile = {dmfb_step.MAX_TILE};" in src
 
@@ -213,11 +237,99 @@ def test_tile_chips_shrinks_to_fit_shared_memory():
     assert tile < dmfb_step.tile_chips(small, 16384)
     assert dmfb_step.tile_bytes(big, tile) <= dmfb_step.SMEM_LIMIT
     assert dmfb_step.tile_bytes(big, tile + 4) > dmfb_step.SMEM_LIMIT
-    # one chip of a board too large for shared memory is refused
+    # one chip of a board too large for shared memory: no tile fits, and
+    # the board goes to the wide kernel
     huge = tdmfb.DMFBParams(width=220, length=220, n_droplets=16)
     assert dmfb_step.tile_bytes(huge, 1) > dmfb_step.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         dmfb_step.tile_chips(huge, 8)
+    assert dmfb_step.kernel_for(huge) == "wide"
+    assert dmfb_step.kernel_for(big) == "tile"
+
+
+@pytest.mark.parametrize("width,length,n,fov,observe,kernel", [
+    # the main path and the shipped configurations
+    (10, 10, 4, 9, True, "tile"),
+    (10, 10, 2, 9, False, "tile"),
+    (50, 50, 4, 9, True, "tile"),
+    (20, 20, 16, 9, True, "tile"),
+    # the shapes of chip_smoke.py phase 11
+    (20, 20, 20, 9, True, "wide"),
+    (10, 10, 13, 9, True, "tile"),   # JAX's cap on 10x10: 13 droplets
+    (50, 50, 64, 9, True, "wide"),
+    (40, 40, 130, 9, True, "wide"),
+    (200, 200, 4, 9, True, "wide"),
+    (160, 160, 4, 9, True, "wide"),
+    (160, 160, 10, 9, True, "wide"),
+    (20, 20, 17, 9, False, "wide"),
+    # the largest board whose one chip the tile kernel takes at 4 droplets,
+    # with and without observations (which shrink the tile)
+    (151, 151, 4, 9, True, "tile"),
+    (152, 152, 4, 9, True, "wide"),
+    (152, 152, 4, 9, False, "tile"),
+])
+def test_kernel_for_names_the_kernel_that_takes_the_shape(width, length, n,
+                                                          fov, observe,
+                                                          kernel):
+    with pytest.warns(UserWarning, match="lattice") if (width, n) == (
+            10, 13) else contextlib.nullcontext():
+        p = tdmfb.DMFBParams(width=width, length=length, n_droplets=n,
+                             fov=fov)
+    assert dmfb_step.kernel_for(p, observe) == kernel
+    if kernel == "tile":
+        tile = dmfb_step.tile_chips(p, 16384, observe)
+        assert dmfb_step.tile_bytes(p, tile, observe) <= dmfb_step.SMEM_LIMIT
+    # the wide kernel's workspace stays in shared memory at these shapes
+    assert dmfb_step.wide_workspace_bytes(p) <= dmfb_step.WIDE_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(n_droplets=3),
+                                dict(width=40, length=40, n_droplets=130),
+                                dict(width=200, length=200),
+                                dict(width=100, length=100, fov=99)])
+def test_wide_workspace_mirrors_the_kernel_layout(kw):
+    """``_wide_spans`` against ``workspace`` in csrc/dmfb_step_wide.cu
+    (with the rows and the corner that the launch passes, and without
+    observations zeros), ``wide_rows`` against ``chunk_rows``, and the
+    limits against ``kWideSmemLimit`` and ``kRowBytes``."""
+    import re
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        p = tdmfb.DMFBParams(**kw)
+    src = (_build.CSRC / "dmfb_step_wide.cu").read_text()
+    body = src[src.index("inline Workspace workspace("):]
+    body = body[:body.index("t.total")]
+    exprs = re.findall(r"take\(e, ([^)]*)\);", body)
+    od = p.obs_dim
+    rows = dmfb_step.wide_rows(p)
+    assert rows == min(p.n_droplets, max(1, 8192 // od))
+    assert "return min(N, max(1, kRowBytes / od));" in src
+    for observe in (True, False):
+        env = dict(N=p.n_droplets, WL=p.width * p.length,
+                   f2=p.fov ** 2 * observe, rows=(rows * od + 16) * observe)
+        assert [eval(e, {}, env) for e in exprs] == dmfb_step._wide_spans(
+            p, observe)
+        assert dmfb_step.wide_workspace_bytes(p, observe) == sum(
+            -(-eval(e, {}, env) // 16) * 16 for e in exprs)
+    assert "kWideSmemLimit = 227 * 1024 - 1024;" in src
+    assert dmfb_step.WIDE_SMEM_LIMIT == 227 * 1024 - 1024
+    assert "kRowBytes = 8192;" in src and dmfb_step.WIDE_ROW_BYTES == 8192
+
+
+def test_wide_workspace_goes_to_global_memory_beyond_shared_memory():
+    """A board of 500x500 (250,000 bytes of count map) and 200x200 with
+    JAX's most droplets there (4,489: 40,000 bytes of count map and 57 a
+    droplet, before the observation rows) take a scratch buffer."""
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        big = tdmfb.DMFBParams(width=500, length=500, n_droplets=4)
+        crowded = tdmfb.DMFBParams(width=200, length=200, n_droplets=4489)
+    assert dmfb_step.wide_workspace_bytes(crowded, False) == 278_000
+    for p in (big, crowded):
+        assert dmfb_step.kernel_for(p) == "wide"
+        assert dmfb_step.wide_workspace_bytes(p) > dmfb_step.WIDE_SMEM_LIMIT
 
 
 def _card_state(p, B, g, offset):
@@ -335,6 +447,101 @@ def test_cuda_kernel_matches_plain(width, length, n, blocks, fov, B, offset):
             torch.testing.assert_close(getattr(ok, f), getattr(op, f),
                                        rtol=0, atol=1e-5)
         s = sk
+
+
+_WIDE_CASES = [
+    # (width, length, droplets, blocks, fov, B, offset, scratch)
+    pytest.param(20, 20, 20, 0, 9, 512, 0, False, id="20-20-512"),
+    pytest.param(20, 20, 20, 2, 9, 100, 1, False, id="20-20-blocks-unaligned"),
+    pytest.param(20, 20, 17, 2, 3, 33, 0, False, id="20-17-fov3"),
+    pytest.param(20, 20, 24, 0, 19, 64, 0, False, id="20-24-fov19"),
+    pytest.param(10, 10, 13, 0, 9, 256, 0, False, id="10-13-cap"),
+    pytest.param(40, 40, 130, 0, 9, 32, 0, False, id="40-130-ids"),
+    pytest.param(200, 200, 4, 2, 9, 16, 0, False, id="200-4"),
+    pytest.param(160, 160, 10, 0, 9, 16, 1, False, id="160-10-unaligned"),
+    # the largest board that one warp a chip takes, and the next
+    pytest.param(64, 64, 20, 2, 9, 64, 1, False, id="64-20-one-warp"),
+    pytest.param(65, 64, 20, 2, 9, 64, 0, False, id="65x64-20-four-warps"),
+    pytest.param(12, 10, 4, 2, 5, 1, 0, False, id="12x10-B1"),
+    # the workspace in the global scratch buffer
+    pytest.param(20, 20, 20, 2, 9, 64, 0, True, id="20-20-scratch"),
+    pytest.param(500, 500, 4, 0, 9, 4, 0, False, id="500-4-scratch"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,length,n,blocks,fov,B,offset,scratch",
+                         _WIDE_CASES)
+def test_wide_kernel_matches_plain(monkeypatch, width, length, n, blocks, fov,
+                                   B, offset, scratch):
+    """The wide kernel (forced here; ``kernel_for`` names it where the
+    tile kernel cannot take the shape) against the plain version over 3
+    chained steps, with observations and without; on 10x10 with 4 droplets
+    (the main config's board) also against the tile kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import warnings
+    if scratch:
+        monkeypatch.setattr(dmfb_step, "WIDE_SMEM_LIMIT", 0)
+    monkeypatch.setattr(dmfb_step, "kernel_for",
+                        lambda params, observe=True: "wide")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the lattice fallback's warning
+        p = tdmfb.DMFBParams(width=width, length=length, n_droplets=n,
+                             n_blocks=blocks, fov=fov)
+    g = torch.Generator(device="cuda").manual_seed(B + n + width)
+    before = (dmfb_step.launches, dmfb_step.launches_wide)
+    for observe in (True, False):
+        s = _card_state(p, B, g, offset)
+        kernel = dmfb_step.step_batch if observe else dmfb_step.transition_batch
+        plain = tdmfb.step_core if observe else tdmfb.transition
+        for _ in range(3):
+            a = torch.randint(0, 5, (B, n), generator=g, device="cuda",
+                              dtype=torch.int32)
+            u = torch.rand((B, n), generator=g, device="cuda")
+            sk, ok = kernel(p, s, a, u)
+            sp, op = plain(p, s, a, u)
+            torch.cuda.synchronize()
+            for f in ("pos", "dist", "usage", "step_count",
+                      "cum_constraints"):
+                assert torch.equal(getattr(sk, f), getattr(sp, f)), f
+            for f in ("obs",) * observe + ("dones", "terminated",
+                                           "constraints", "success"):
+                assert torch.equal(getattr(ok, f), getattr(op, f)), f
+            assert ok.obs is None or observe
+            for f in ("rewards", "team_reward"):
+                torch.testing.assert_close(getattr(ok, f), getattr(op, f),
+                                           rtol=0, atol=1e-5)
+            s = sk
+    assert (dmfb_step.launches - before[0],
+            dmfb_step.launches_wide - before[1]) == (0, 6)
+
+
+@pytest.mark.cuda
+def test_wide_kernel_equals_the_tile_kernel_on_the_main_board(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    p = tdmfb.DMFBParams(n_droplets=4, n_blocks=2)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    s = _card_state(p, 4096, g, 0)
+    for _ in range(3):
+        a = torch.randint(0, 5, (4096, 4), generator=g, device="cuda",
+                          dtype=torch.int32)
+        u = torch.rand((4096, 4), generator=g, device="cuda")
+        with monkeypatch.context() as m:
+            m.setattr(dmfb_step, "kernel_for",
+                      lambda params, observe=True: "wide")
+            sw, ow = dmfb_step.step_batch(p, s, a, u)
+        st, ot = dmfb_step.step_batch(p, s, a, u)
+        torch.cuda.synchronize()
+        for f in ("pos", "dist", "usage", "step_count", "cum_constraints"):
+            assert torch.equal(getattr(sw, f), getattr(st, f)), f
+        for f in ("obs", "dones", "terminated", "constraints", "success",
+                  "rewards"):
+            assert torch.equal(getattr(ow, f), getattr(ot, f)), f
+        torch.testing.assert_close(ow.team_reward, ot.team_reward, rtol=0,
+                                   atol=1e-5)
+        s = sw
 
 
 def test_launch_runs_under_the_tensors_device(monkeypatch):

@@ -225,3 +225,20 @@ def test_flagship_greedy_matches_jax_at_20x20():
     np.testing.assert_allclose(np.array(jres.reward), tres.reward.numpy(),
                                rtol=0, atol=REWARD_SUM_ATOL)
     assert tres.success.sum() >= 13     # a trained policy (0.96 recorded)
+
+
+def test_flagship_evaluates_20_droplets_through_the_entry_point():
+    """The evaluate entry point at 20 droplets on 20x20 with the flagship
+    export (JAX's evaluate takes any droplet count and the 4-droplet net):
+    past the tile kernel's 16 droplets, which the card's wide kernel takes,
+    the CPU runs the plain step."""
+    from marl_dmfb_tpu_torch import evaluate
+
+    name = "dmfb_20x20_4d_fov9_vdn_b64"
+    with pytest.warns(UserWarning, match="lattice"):
+        m = evaluate.main(["dmfb", "--drop_num=20", "--fov=9",
+                           "--chip_size=20", "--evaluate_task=4",
+                           "--load_model_name=0_final", "--device=cpu",
+                           f"--data_dir={os.path.join(WEIGHTS, name)}"])
+    assert all(np.isfinite(v) for v in m.values())
+    assert 0 < m["steps"] <= 80 and 0.0 <= m["success_rate"] <= 1.0

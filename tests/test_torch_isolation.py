@@ -120,6 +120,20 @@ def test_scan_sees_the_whole_port():
         assert want in names
 
 
+def test_cuda_sources_include_no_pytorch_header():
+    """Each kernel source under ``csrc/`` is plain ``extern "C"`` CUDA that
+    nvcc builds in seconds: no PyTorch header (those take minutes, and the
+    card's machine builds anew on every run)."""
+    sources = sorted((ROOT / "marl_dmfb_tpu_torch" / "csrc").glob("*.cu"))
+    assert [p.name for p in sources] == ["dmfb_step.cu", "dmfb_step_wide.cu"]
+    for path in sources:
+        src = path.read_text()
+        includes = re.findall(r"#include\s*[<\"]([^>\"]+)", src)
+        assert not [h for h in includes
+                    if h.split("/")[0] in ("torch", "ATen", "c10")], path
+        assert 'extern "C" int ' in src, path
+
+
 def test_mesh_ranks_import_nothing_of_jax(tmp_path):
     """``train --mesh=2`` and the ranks it starts (``torch.multiprocessing``
     children, which inherit the environment) run with ``jax`` and
