@@ -11,7 +11,8 @@ Phases, each printing its seconds:
    and the wide kernel (``csrc/dmfb_step_wide.cu``), with two nvcc runs at
    once for sm_90a and print each instantiation's registers, spills and
    shared memory from the ptxas logs; the tile kernel's 4-droplet ones (the
-   main path's) must not spill;
+   main path's) and all four of the wide kernel's (its group and chip
+   layouts, each with and without observations) must not spill;
 2. hold the kernel against its plain PyTorch version on the card (integer,
    bool and usage outputs bitwise equal, rewards within 1e-5) at three
    shapes, three chained steps each;
@@ -99,15 +100,22 @@ Phases, each printing its seconds:
    visible, ``bench_multiproc``; each prints its JSON lines, and every
    value must be finite and positive under its expected metric name;
 11. the wide kernel, which steps every configuration that the tile kernel
-   does not take (more than 16 droplets, or a chip beyond shared memory):
+   does not take (more than 16 droplets, or a chip beyond shared memory),
+   in its group layout (several chips a block) or, on large boards, its
+   chip layout (one block a chip):
    (a) against its plain version (bitwise, rewards within 1e-5) over 3
    chained steps, with observations and without, from views at offset 0
    and 1, at 20x20-20d, 10x10-13d (JAX's cap, the lattice fallback),
    50x50-64d, 40x40-130d (ids past 127), 200x200-4d, 160x160-4d,
-   160x160-10d and 10x10-4d, where it must also equal the tile kernel;
+   160x160-10d and 10x10-4d, where it must also equal the tile kernel, and
+   at the group layout's edges: 17, 32, 33, 64 and 65 droplets (the cuts
+   of its chips a group) at B = 1001 and 20x20-20d at B = 16387 (a last
+   group that is short), and 97x97-4d and 98x98-4d (either side of the
+   cut between the layouts);
    (b) its time (CUDA events around a CUDA graph) beside its byte bound at
    20x20-20d and 10x10-13d (B = 16384), 50x50-64d (B = 4096), 160x160-4d
-   and 200x200-4d (B = 1024), and the plain version's; (c) the evaluate
+   and 200x200-4d (B = 1024), and the plain version's, with observations
+   and without; (c) the evaluate
    entry point with the flagship export at 20 droplets on 20x20 (100
    tasks) and at 4 droplets on 200x200 (T = 800), and ``train`` at 4
    droplets on 160x160 at the CLI's net widths with a small ring, 2 cycles,
@@ -271,7 +279,14 @@ BENCH_MULTIPROC_CARDS = 4
 # calls (it takes milliseconds a call at these shapes)
 WIDE_CMP = [(20, 20, 2, 1024), (10, 13, 0, 1024), (50, 64, 0, 256),
             (40, 130, 0, 64), (200, 4, 2, 64), (160, 4, 0, 64),
-            (160, 10, 2, 64), (10, 4, 2, 4096)]
+            (160, 10, 2, 64), (10, 4, 2, 4096),
+            # the group layout's edges: droplet counts at the cuts of its
+            # chips a group (7, 4, 3, 2, 1 at 128 pairs) with a short last
+            # group; a short last group at the timed shape; either side of
+            # the cut between the two layouts at 4 droplets
+            (20, 17, 2, 1001), (20, 32, 2, 1001), (20, 33, 0, 1001),
+            (30, 64, 2, 1001), (30, 65, 0, 1001), (20, 20, 2, 16387),
+            (97, 4, 2, 64), (98, 4, 2, 64)]
 WIDE_TIMED = [(20, 20, 16384), (10, 13, 16384), (50, 64, 4096),
               (160, 4, 1024), (200, 4, 1024)]
 PLAIN_ITERS = 4
@@ -1772,36 +1787,51 @@ def wide_kernel(smi) -> dict:
                                        "wide",
                                        reference=dmfb_step.step_batch))
         out["max_abs_err"] = max(out["max_abs_err"], *errs)
+        group = dmfb_step.wide_group_chips(p, batch)
+        layout = (f"group layout, {group} chips a group, the last "
+                  f"{batch - (-(-batch // group) - 1) * group}" if group
+                  else "chip layout")
         log(f"phase 11: {width}x{width}-{n}d, {blocks} blocks, B={batch} "
-            f"({dmfb_step.kernel_for(p)} kernel's shape, workspace "
-            f"{dmfb_step.wide_workspace_bytes(p)} bytes): wide == plain over "
+            f"({dmfb_step.kernel_for(p)} kernel's shape; wide kernel's "
+            f"{layout}): wide == plain over "
             f"3 steps, with and without observations, offsets 0 and 1"
             + (", and == the tile kernel" if len(errs) > 4 else "")
             + f" (max |diff| {max(errs):.3g})")
     out["phase_s"]["compare"] = time.perf_counter() - t0
 
-    # (b) times beside the byte bound
+    # (b) times beside the byte bound, with observations and without
     t0 = time.perf_counter()
     for width, n, batch in WIDE_TIMED:
         p = wide_params(tdmfb, width, n)
         s = random_states(tdmfb, p, 4 * batch, g)
         sets = [(tdmfb.DMFBState(*(t[i * batch:(i + 1) * batch] for t in s)),
                  *step_inputs(p, batch, g)) for i in range(4)]
-        with forced(dmfb_step, "wide"):
-            ms = device_ms([lambda x=x: dmfb_step.step_batch(p, *x)
-                            for x in sets])
-        plain_ms = device_ms([lambda x=x: tdmfb.step_core(p, *x)
-                              for x in sets], iters=PLAIN_ITERS)
-        bound_ms, bound_by, n_bytes, n_ops = bound(dmfb_step, p, batch)
-        out["timed"].append(dict(
-            shape=f"{width}x{width}-{n}d", batch=batch, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            share=bound_ms / ms))
-        log(f"phase 11: [{smi}] dmfb_step_wide {width}x{width}-{n}d at "
-            f"B={batch}: kernel {ms * 1e3:.2f} us, plain "
-            f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
-            f"({bound_by}: {n_bytes} bytes, {n_ops} ops), "
-            f"{100 * bound_ms / ms:.1f}% of the bound")
+        row = dict(shape=f"{width}x{width}-{n}d", batch=batch,
+                   group=dmfb_step.wide_group_chips(p, batch))
+        how = (f"{row['group']} chips a group" if row["group"]
+               else "a block a chip")
+        for observe in (True, False):
+            step = dmfb_step.step_batch if observe \
+                else dmfb_step.transition_batch
+            plain = tdmfb.step_core if observe else tdmfb.transition
+            with forced(dmfb_step, "wide"):
+                ms = device_ms([lambda x=x: step(p, *x) for x in sets])
+            plain_ms = device_ms([lambda x=x: plain(p, *x) for x in sets],
+                                 iters=PLAIN_ITERS)
+            bound_ms, bound_by, n_bytes, n_ops = bound(dmfb_step, p, batch,
+                                                       observe)
+            mode = "" if observe else "no_obs_"
+            row.update({f"{mode}ms": ms, f"{mode}plain_ms": plain_ms,
+                        f"{mode}bound_ms": bound_ms,
+                        f"{mode}bound_by": bound_by,
+                        f"{mode}share": bound_ms / ms})
+            log(f"phase 11: [{smi}] dmfb_step_wide {width}x{width}-{n}d at "
+                f"B={batch} ({how}, observe={observe}): kernel "
+                f"{ms * 1e3:.2f} us, plain "
+                f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+                f"({bound_by}: {n_bytes} bytes, {n_ops} ops), "
+                f"{100 * bound_ms / ms:.1f}% of the bound")
+        out["timed"].append(row)
         del s, sets
     out["phase_s"]["timed"] = time.perf_counter() - t0
 
@@ -1933,14 +1963,14 @@ def main() -> int:
             raise AssertionError(
                 f"the 4-droplet instantiation (observe={mode}) spills or was "
                 f"not found in the ptxas log: {found}")
-    # the wide kernel: one warp or four a chip, each mode
-    wide = {(warps, mode): [info for entry, info in ptxas_wide.items()
-                            if f"wide_kernelILi{32 * warps}ELb{int(mode)}E"
-                            in entry]
-            for warps in (1, 4) for mode in (True, False)}
-    if any(len(found) != 1 for found in wide.values()):
-        raise AssertionError(f"the wide kernel's instantiations in the "
-                             f"ptxas log: {wide}")
+    # the wide kernel: its group and chip layouts, each mode; none may spill
+    wide = {(layout, mode): [info for entry, info in ptxas_wide.items()
+                             if f"{layout}_kernelILb{int(mode)}E" in entry]
+            for layout in ("group", "chip") for mode in (True, False)}
+    if any(len(found) != 1 or found[0].get("spill_stores") != 0
+           or found[0].get("spill_loads") != 0 for found in wide.values()):
+        raise AssertionError(f"a wide kernel instantiation spills or was not "
+                             f"found in the ptxas log: {wide}")
     log(f"phase 1: {time.perf_counter() - t0:.2f} s")
 
     # --- 2: kernel vs plain version ---
@@ -2220,8 +2250,12 @@ def main() -> int:
         "shape": phase11["timed"][0]["shape"],
         "batch": phase11["timed"][0]["batch"],
         "timed": phase11["timed"],
-        "ptxas": {f"{32 * warps}_threads_{'obs' if mode else 'no_obs'}":
-                  found[0] for (warps, mode), found in wide.items()},
+        "no_obs_ms": phase11["timed"][0]["no_obs_ms"],
+        "no_obs_plain_ms": phase11["timed"][0]["no_obs_plain_ms"],
+        "no_obs_bound_ms": phase11["timed"][0]["no_obs_bound_ms"],
+        "group": phase11["timed"][0]["group"],
+        "ptxas": {f"{layout}_{'obs' if mode else 'no_obs'}":
+                  found[0] for (layout, mode), found in wide.items()},
     }]}))
     log(json.dumps({"train": {
         "cycles": cycles, "updates": updates,

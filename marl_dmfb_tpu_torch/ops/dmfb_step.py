@@ -12,8 +12,10 @@ CPU tensors it runs that plain version; on CUDA tensors it launches a
 kernel (built on first use) or raises.  Two hand kernels compute the step,
 chosen by shape (:func:`kernel_for`): the tile kernel, which stages tiles
 of up to 16 chips in shared memory, for at most ``MAX_DROPLETS`` droplets
-and a chip that fits there (every shipped configuration); the wide kernel,
-one block per chip, for everything else that ``DMFBParams`` accepts.  Both
+and a chip that fits there (every shipped configuration); the wide kernel
+for everything else that ``DMFBParams`` accepts, in one of two layouts
+(:func:`wide_group_chips`): groups of chips staged in shared memory, or one
+block per chip for the large boards whose usage board is the cost.  Both
 compute the v0 observation; for the v0.1 observation they run in their
 no-observation mode (the transition alone, :func:`transition_batch`, whose
 plain version is ``envs.dmfb.transition``), and the plain v0.1 ``observe``
@@ -40,17 +42,24 @@ MAX_DROPLETS = 16  # the tile kernel's compile-time bound (kMaxDroplets)
 SMEM_LIMIT = 227 * 1024   # a block's dynamic shared memory on sm_90 (kSmemLimit)
 MAX_TILE = 16      # chips per tile at most (kMaxTile)
 FILL_TILES = 264   # tiles that give each of an H100's 132 SMs two
-# the wide kernel's workspace in shared memory at most (kWideSmemLimit);
-# a larger one goes to a global scratch buffer
+# the wide kernel's group layout: threads of a block (kThreads), chips of a
+# group at most (kMaxGroup); an H100 SM's shared memory, of which each block
+# takes 1 KB more than it asks for
+GROUP_THREADS = 128
+MAX_GROUP = 32
+SM_SMEM = 228 * 1024
+# its chip layout: the workspace in shared memory at most (kWideSmemLimit;
+# a larger one goes to a global scratch buffer), the observation rows it
+# stages at a time (kRowBytes), and its blocks on one SM at most (2048
+# threads over a block of 128; a scratch buffer holds a workspace for each
+# block of the grid)
 WIDE_SMEM_LIMIT = 227 * 1024 - 1024
-WIDE_ROW_BYTES = 8192    # observation rows it stages at a time (kRowBytes)
-# its blocks on one SM at most: 2048 threads over a block of 128; a scratch
-# buffer holds a workspace for each block of the grid
+WIDE_ROW_BYTES = 8192
 WIDE_BLOCKS_PER_SM = 16
 
 _ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-_WIDE_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 9 + [
+_WIDE_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
@@ -71,13 +80,16 @@ def _span_bytes(params: dmfb.DMFBParams, observe: bool = True) -> list:
             n * _obs_row(params, observe), 8 * n, 1]
 
 
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
 def tile_bytes(params: dmfb.DMFBParams, tile: int,
                observe: bool = True) -> int:
     """Dynamic shared memory of a block whose tiles hold ``tile`` chips: 16
     bytes of mbarriers, then two tile buffers, each span rounded up to 16
     bytes."""
-    return 16 + 2 * sum(-(-tile * b // 16) * 16
-                        for b in _span_bytes(params, observe))
+    return 16 + 2 * sum(_round16(tile * b) for b in _span_bytes(params, observe))
 
 
 def tile_chips(params: dmfb.DMFBParams, batch: int,
@@ -143,16 +155,82 @@ def kernel_for(params: dmfb.DMFBParams, observe: bool = True) -> str:
     return "wide"
 
 
+def _group_spans(params: dmfb.DMFBParams, chips: int,
+                 observe: bool = True) -> tuple:
+    """(inputs, work): bytes of each span of a group of ``chips`` chips in
+    the wide kernel's group layout, in the order of ``group_layout`` in
+    ``csrc/dmfb_step_wide.cu``.  The inputs (pos, goal, dist, actions,
+    uniforms, step_count, cum_constraints, block_mask, usage) fill each of
+    two buffers; the work area
+    holds two occupancy maps a chip (of the past and the new cells, padded
+    by a cell on each side), the past and new cells and the goal, distance
+    and flags of each droplet and the map indices of its move and its past
+    cell (int4 each),
+    the health under each droplet (fetched a group ahead), the rewards, per
+    chip two sums and its step and, with ``observe``, the block corner's
+    fov^2 bits and the observation rows (16 bytes spare, to match their
+    offset in device memory)."""
+    c, n, wl = chips, params.n_droplets, params.width * params.length
+    inputs = [8 * c * n, 8 * c * n, 4 * c * n, 4 * c * n, 4 * c * n, 4 * c,
+              4 * c, c * wl, 4 * c * wl]
+    maps = 2 * c * (params.width + 2) * (params.length + 2)
+    work = [maps, 16 * c * n, 16 * c * n, 16 * c * n, 4 * c * n, 4 * c * n,
+            16 * c]
+    if observe:
+        corner = 4 * c * -(-params.fov ** 2 // 32)
+        return inputs, work + [corner, c * n * _obs_row(params, True) + 16]
+    return inputs, work + [0, 0]
+
+
+def group_bytes(params: dmfb.DMFBParams, chips: int,
+                observe: bool = True) -> int:
+    """Dynamic shared memory of a group-layout block of ``chips`` chips: 32
+    bytes of mbarriers, two input buffers (each staged span takes 16 bytes
+    more than its size rounded up to 16, since it arrives as the 16-byte
+    words that cover it in device memory) and the work area."""
+    inputs, work = _group_spans(params, chips, observe)
+    return (32 + 2 * sum(_round16(b + 16) for b in inputs)
+            + sum(_round16(b) for b in work))
+
+
+def _blocks_per_sm(nbytes: int) -> int:
+    """Blocks of ``nbytes`` of dynamic shared memory that share an SM."""
+    return SM_SMEM // (nbytes + 1024)
+
+
+def wide_group_chips(params: dmfb.DMFBParams, batch: int,
+                     observe: bool = True) -> int:
+    """Chips a group of the wide kernel for a launch over ``batch`` chips,
+    or 0 for its chip layout (one block per chip) where a group of one chip
+    leaves no room for a second block on the SM: there a block would wait
+    alone on its bulk copies, and the chip layout is the faster (PERF.md).
+
+    At most one chip a lane of warp 0 (``MAX_GROUP``) and as many as give
+    each of the block's ``GROUP_THREADS`` threads a (chip, droplet) pair;
+    of those counts whose blocks still share an SM two at a time, the
+    largest that still gives ``FILL_TILES`` groups, else the smallest, so
+    that a small batch spreads over more SMs."""
+    if _blocks_per_sm(group_bytes(params, 1, observe)) < 2:
+        return 0
+    most = max(1, min(MAX_GROUP, GROUP_THREADS // params.n_droplets, batch))
+    fits = [c for c in range(1, most + 1)
+            if _blocks_per_sm(group_bytes(params, c, observe)) >= 2]
+    filling = [c for c in fits if -(-batch // c) >= FILL_TILES]
+    return filling[-1] if filling else fits[0]
+
+
 def wide_rows(params: dmfb.DMFBParams) -> int:
-    """Observation rows the wide kernel stages at a time (``chunk_rows``):
-    as many as fit in ``WIDE_ROW_BYTES``, at least one."""
+    """Observation rows the wide kernel's chip layout stages at a time
+    (``chunk_rows``): as many as fit in ``WIDE_ROW_BYTES``, at least
+    one."""
     return min(params.n_droplets,
                max(1, WIDE_ROW_BYTES // _obs_row(params, True)))
 
 
 def _wide_spans(params: dmfb.DMFBParams, observe: bool = True) -> list:
-    """Bytes of each span of one chip's workspace in the wide kernel, in
-    the order of ``workspace`` in ``csrc/dmfb_step_wide.cu``: the occupancy
+    """Bytes of each span of one chip's workspace in the wide kernel's chip
+    layout, in the order of ``workspace`` in ``csrc/dmfb_step_wide.cu``: the
+    occupancy
     count map, the past and new cells, the goals, the candidate cells, the
     past and new distances, the flags, the rewards, the usage at the past
     and candidate cells, and with ``observe`` the block mask's corner
@@ -167,10 +245,10 @@ def _wide_spans(params: dmfb.DMFBParams, observe: bool = True) -> list:
 
 def wide_workspace_bytes(params: dmfb.DMFBParams,
                          observe: bool = True) -> int:
-    """One chip's workspace in the wide kernel, each span rounded up to 16
-    bytes: dynamic shared memory up to ``WIDE_SMEM_LIMIT``, else a slice of
-    the global scratch buffer."""
-    return sum(-(-b // 16) * 16 for b in _wide_spans(params, observe))
+    """One chip's workspace in the wide kernel's chip layout, each span
+    rounded up to 16 bytes: dynamic shared memory up to
+    ``WIDE_SMEM_LIMIT``, else a slice of the global scratch buffer."""
+    return sum(_round16(b) for b in _wide_spans(params, observe))
 
 
 def _library(name: str, launch: str, argtypes: list) -> ctypes.CDLL:
@@ -308,14 +386,17 @@ def _launch(params: dmfb.DMFBParams, state: dmfb.DMFBState,
              int(params.stall), params.max_step]
     stream = torch.cuda.current_stream(device).cuda_stream
     if wide:
-        workspace = wide_workspace_bytes(params, observe)
-        slots = min(B, WIDE_BLOCKS_PER_SM * torch.cuda.get_device_properties(
-            device).multi_processor_count)
-        scratch = (empty((slots, workspace), torch.uint8)
-                   if workspace > WIDE_SMEM_LIMIT else None)
+        group = wide_group_chips(params, B, observe)
+        scratch, slots = None, 0
+        if not group and wide_workspace_bytes(params, observe) \
+                > WIDE_SMEM_LIMIT:
+            slots = min(B, WIDE_BLOCKS_PER_SM * torch.cuda.get_device_properties(
+                device).multi_processor_count)
+            scratch = empty((slots, wide_workspace_bytes(params, observe)),
+                            torch.uint8)
         rc = wide_library().dmfb_step_wide_launch(
-            *tensors, ptr(scratch), slots, *sizes, int(observe), rcp_x,
-            rcp_y, stream)
+            *tensors, ptr(scratch), slots, *sizes, group, int(observe),
+            rcp_x, rcp_y, stream)
     else:
         rc = kernel_library().dmfb_step_launch(
             *tensors, *sizes, tile_chips(params, B, observe), int(observe),

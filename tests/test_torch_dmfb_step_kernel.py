@@ -283,25 +283,55 @@ def test_kernel_for_names_the_kernel_that_takes_the_shape(width, length, n,
     assert dmfb_step.wide_workspace_bytes(p) <= dmfb_step.WIDE_SMEM_LIMIT
 
 
+def _wide_layout_from_source(function):
+    """The span expressions of ``function`` (``group_layout`` or
+    ``workspace``) in csrc/dmfb_step_wide.cu, each with its kind of take
+    (``take_in``: a staged input span, ``take``: the others)."""
+    import re
+    src = (_build.CSRC / "dmfb_step_wide.cu").read_text()
+    body = src[src.index(f"inline {function}("):]
+    body = body[:body.index("t.total")]
+    return re.findall(r"(take(?:_in)?)\(e, (.*)\);", body)
+
+
 @pytest.mark.parametrize("kw", [dict(), dict(n_droplets=3),
                                 dict(width=40, length=40, n_droplets=130),
                                 dict(width=200, length=200),
                                 dict(width=100, length=100, fov=99)])
-def test_wide_workspace_mirrors_the_kernel_layout(kw):
-    """``_wide_spans`` against ``workspace`` in csrc/dmfb_step_wide.cu
+@pytest.mark.parametrize("chips", [1, 6, 32])
+def test_wide_workspace_mirrors_the_kernel_layout(kw, chips):
+    """Both layouts of the wide kernel against csrc/dmfb_step_wide.cu: the
+    group layout's ``_group_spans`` and ``group_bytes`` against
+    ``group_layout`` (two input buffers after 32 bytes of mbarriers, each
+    input span 16 bytes wider than rounded; without observations no corner
+    and no rows), the chip layout's ``_wide_spans`` against ``workspace``
     (with the rows and the corner that the launch passes, and without
     observations zeros), ``wide_rows`` against ``chunk_rows``, and the
-    limits against ``kWideSmemLimit`` and ``kRowBytes``."""
-    import re
+    limits against ``kWideSmemLimit``, ``kRowBytes``, ``kThreads`` and
+    ``kMaxGroup``."""
     import warnings
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         p = tdmfb.DMFBParams(**kw)
     src = (_build.CSRC / "dmfb_step_wide.cu").read_text()
-    body = src[src.index("inline Workspace workspace("):]
-    body = body[:body.index("t.total")]
-    exprs = re.findall(r"take\(e, ([^)]*)\);", body)
+    spans = _wide_layout_from_source("GroupLayout group_layout")
+    kinds = [kind for kind, _ in spans]
+    assert kinds == ["take_in"] * 9 + ["take"] * 9
+    assert "e = 32 + 2 * t.in_bytes;" in src
     od = p.obs_dim
+    for observe in (True, False):
+        env = dict(C=chips, N=p.n_droplets, WL=p.width * p.length,
+                   M=(p.width + 2) * (p.length + 2), od=od * observe)
+        got = [eval(e.replace("/", "//"), {}, env) for _, e in spans]
+        inputs, work = dmfb_step._group_spans(p, chips, observe)
+        assert got == inputs + work
+        assert dmfb_step.group_bytes(p, chips, observe) == 32 + 2 * sum(
+            -(-(b + 16) // 16) * 16 for b in got[:9]) + sum(
+            -(-b // 16) * 16 for b in got[9:])
+    assert dmfb_step.group_bytes(p, chips, False) < dmfb_step.group_bytes(
+        p, chips)
+
+    exprs = [e for _, e in _wide_layout_from_source("Workspace workspace")]
     rows = dmfb_step.wide_rows(p)
     assert rows == min(p.n_droplets, max(1, 8192 // od))
     assert "return min(N, max(1, kRowBytes / od));" in src
@@ -315,6 +345,121 @@ def test_wide_workspace_mirrors_the_kernel_layout(kw):
     assert "kWideSmemLimit = 227 * 1024 - 1024;" in src
     assert dmfb_step.WIDE_SMEM_LIMIT == 227 * 1024 - 1024
     assert "kRowBytes = 8192;" in src and dmfb_step.WIDE_ROW_BYTES == 8192
+    assert "kThreads = 128;" in src and dmfb_step.GROUP_THREADS == 128
+    assert f"kMaxGroup = {dmfb_step.MAX_GROUP};" in src
+    assert "kSmemLimit = 227 * 1024;" in src
+
+
+def _wide(width, n, fov=9, length=None):
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the lattice fallback's warning
+        return tdmfb.DMFBParams(width=width, length=length or width,
+                                n_droplets=n, fov=fov)
+
+
+@pytest.mark.parametrize("width,n,batch,observe,chips", [
+    # the timed shapes: a (chip, droplet) pair a thread, two blocks an SM
+    (20, 20, 16384, True, 6), (20, 20, 16384, False, 6),
+    (10, 13, 16384, True, 9), (50, 64, 4096, True, 2),
+    (50, 64, 4096, False, 2),
+    # droplet counts at the cuts of 128 pairs: 7, 4, 3, 2 and 1 chips
+    (20, 17, 16384, True, 7), (20, 32, 16384, True, 4),
+    (20, 33, 16384, True, 3), (30, 64, 16384, True, 2),
+    (30, 65, 16384, True, 1),
+    # small batches: enough groups for two an SM, else one chip a group
+    (20, 20, 1024, True, 3), (20, 20, 1001, True, 3),
+    (20, 20, 100, True, 1), (20, 20, 1, True, 1),
+    # the main config's board takes the most chips that fill the card
+    (10, 4, 16384, True, 32), (10, 4, 4096, True, 15),
+    # the layout cut at 4 droplets: 97x97 is the largest board on which a
+    # group of one chip leaves room for a second block on the SM
+    (97, 4, 1024, True, 1), (98, 4, 1024, True, 0),
+    (97, 4, 1024, False, 1), (98, 4, 1024, False, 0),
+    (138, 4, 1024, True, 0),
+    # boards whose usage board is the cost: one block a chip
+    (160, 4, 1024, True, 0), (200, 4, 1024, True, 0),
+    (160, 10, 64, True, 0),
+])
+def test_wide_group_chips_sizes_the_group(width, n, batch, observe, chips):
+    p = _wide(width, n)
+    got = dmfb_step.wide_group_chips(p, batch, observe)
+    assert got == chips
+    blocks = dmfb_step._blocks_per_sm(dmfb_step.group_bytes(p, max(chips, 1),
+                                                             observe))
+    if chips:
+        assert chips <= dmfb_step.MAX_GROUP and chips <= batch
+        assert chips * n <= dmfb_step.GROUP_THREADS or chips == 1
+        assert blocks >= 2
+    else:
+        assert blocks < 2
+
+
+@pytest.mark.parametrize("width,n,batch,observe,group,slots", [
+    (20, 20, 1024, True, 3, 0),
+    (20, 20, 1001, False, 3, 0),
+    (50, 64, 256, True, 1, 0),
+    (200, 4, 8, True, 0, 0),
+    # a workspace past shared memory: one slice of scratch a block of the
+    # grid, at most 16 blocks an SM (2 SMs here)
+    (500, 4, 4, True, 0, 4),
+    (200, 4489, 40, False, 0, 32),
+])
+def test_wide_launch_passes_the_layout_and_its_scratch(
+        monkeypatch, width, n, batch, observe, group, slots):
+    """The wrapper's host-side sizing of a wide launch, with a stand-in for
+    the library and the card: the group it passes (0: the chip layout),
+    the scratch buffer (only for a chip-layout workspace past
+    ``WIDE_SMEM_LIMIT``, ``slots`` workspaces of ``wide_workspace_bytes``)
+    and the launch count."""
+    p = _wide(width, n)
+    calls = []
+
+    class Lib:
+        def dmfb_step_wide_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    allocated = []
+    real_empty = torch.empty
+
+    def empty(shape, **kw):
+        allocated.append(tuple(shape))
+        return real_empty(shape, **kw)
+
+    monkeypatch.setattr(dmfb_step, "wide_library", Lib)
+    monkeypatch.setattr(dmfb_step.torch, "empty", empty)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: types.SimpleNamespace(
+                            multi_processor_count=2))
+    monkeypatch.setattr(dmfb_step, "launches_wide", 0)
+    chips = (batch, width, width)
+    state = tdmfb.DMFBState(   # the shapes alone matter here
+        pos=torch.zeros((batch, n, 2), dtype=torch.int32),
+        start=torch.zeros((batch, n, 2), dtype=torch.int32),
+        goal=torch.zeros((batch, n, 2), dtype=torch.int32),
+        dist=torch.zeros((batch, n), dtype=torch.int32),
+        health=torch.zeros(chips), usage=torch.zeros(chips),
+        block_mask=torch.zeros(chips, dtype=torch.bool),
+        degrade=torch.zeros(chips),
+        step_count=torch.zeros(batch, dtype=torch.int32),
+        cum_constraints=torch.zeros(batch, dtype=torch.int32))
+    actions = torch.zeros((batch, n), dtype=torch.int32)
+    uniforms = torch.zeros((batch, n))
+    dmfb_step._launch(p, state, actions, uniforms, observe, "wide")
+    (args,) = calls
+    scratch, got_slots, sizes = args[22], args[23], args[24:31]
+    assert tuple(sizes) == (batch, width, width, n, 9, int(p.stall),
+                            p.max_step)
+    assert (args[31], args[32], args[35]) == (group, int(observe), 7)
+    assert dmfb_step.launches_wide == 1
+    assert got_slots == slots
+    assert (scratch != 0) == bool(slots)
+    if slots:
+        assert (slots, dmfb_step.wide_workspace_bytes(p, observe)) in \
+            allocated
 
 
 def test_wide_workspace_goes_to_global_memory_beyond_shared_memory():
@@ -450,38 +595,54 @@ def test_cuda_kernel_matches_plain(width, length, n, blocks, fov, B, offset):
 
 
 _WIDE_CASES = [
-    # (width, length, droplets, blocks, fov, B, offset, scratch)
-    pytest.param(20, 20, 20, 0, 9, 512, 0, False, id="20-20-512"),
-    pytest.param(20, 20, 20, 2, 9, 100, 1, False, id="20-20-blocks-unaligned"),
-    pytest.param(20, 20, 17, 2, 3, 33, 0, False, id="20-17-fov3"),
-    pytest.param(20, 20, 24, 0, 19, 64, 0, False, id="20-24-fov19"),
-    pytest.param(10, 10, 13, 0, 9, 256, 0, False, id="10-13-cap"),
-    pytest.param(40, 40, 130, 0, 9, 32, 0, False, id="40-130-ids"),
-    pytest.param(200, 200, 4, 2, 9, 16, 0, False, id="200-4"),
-    pytest.param(160, 160, 10, 0, 9, 16, 1, False, id="160-10-unaligned"),
-    # the largest board that one warp a chip takes, and the next
-    pytest.param(64, 64, 20, 2, 9, 64, 1, False, id="64-20-one-warp"),
-    pytest.param(65, 64, 20, 2, 9, 64, 0, False, id="65x64-20-four-warps"),
-    pytest.param(12, 10, 4, 2, 5, 1, 0, False, id="12x10-B1"),
+    # (width, length, droplets, blocks, fov, B, offset, layout): "auto" as
+    # the wrapper chooses, "chip" one block a chip (a group of one chip
+    # made not to fit), "scratch" that with the workspace in global memory
+    pytest.param(20, 20, 20, 0, 9, 512, 0, "auto", id="20-20-512"),
+    pytest.param(20, 20, 20, 2, 9, 100, 1, "auto", id="20-20-blocks-unaligned"),
+    pytest.param(20, 20, 17, 2, 3, 33, 0, "auto", id="20-17-fov3"),
+    pytest.param(20, 20, 24, 0, 19, 64, 0, "auto", id="20-24-fov19"),
+    pytest.param(10, 10, 13, 0, 9, 256, 0, "auto", id="10-13-cap"),
+    pytest.param(40, 40, 130, 0, 9, 32, 0, "auto", id="40-130-ids"),
+    pytest.param(200, 200, 4, 2, 9, 16, 0, "auto", id="200-4"),
+    pytest.param(160, 160, 10, 0, 9, 16, 1, "auto", id="160-10-unaligned"),
+    pytest.param(64, 64, 20, 2, 9, 64, 1, "auto", id="64-20-one-warp"),
+    pytest.param(65, 64, 20, 2, 9, 64, 0, "auto", id="65x64-20-four-warps"),
+    pytest.param(12, 10, 4, 2, 5, 1, 0, "auto", id="12x10-B1"),
     # the workspace in the global scratch buffer
-    pytest.param(20, 20, 20, 2, 9, 64, 0, True, id="20-20-scratch"),
-    pytest.param(500, 500, 4, 0, 9, 4, 0, False, id="500-4-scratch"),
+    pytest.param(20, 20, 20, 2, 9, 64, 0, "scratch", id="20-20-scratch"),
+    pytest.param(500, 500, 4, 0, 9, 4, 0, "auto", id="500-4-scratch"),
+    # the group layout's edges: droplet counts at the cuts of its 128
+    # (chip, droplet) pairs (7, 4, 3, 2, 1 chips a group), a last group
+    # that is short, views at offset 1, odd boards and counts
+    *[pytest.param(w, w, n, 2, 9, 1001, off, "auto", id=f"N{n}-B1001")
+      for w, n, off in ((20, 17, 1), (20, 32, 0), (20, 33, 1), (30, 64, 0),
+                        (30, 65, 1))],
+    pytest.param(20, 20, 20, 2, 9, 16387, 1, "auto", id="20-20-ragged"),
+    pytest.param(11, 13, 13, 2, 5, 777, 1, "auto", id="11x13-13-odd"),
+    # a board on each side of the layout cut at 4 droplets
+    pytest.param(97, 97, 4, 2, 9, 37, 1, "auto", id="97-4-group"),
+    pytest.param(98, 98, 4, 2, 9, 37, 1, "auto", id="98-4-chip"),
+    # the chip layout on a small board
+    pytest.param(20, 20, 20, 2, 9, 257, 1, "chip", id="20-20-chip"),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width,length,n,blocks,fov,B,offset,scratch",
+@pytest.mark.parametrize("width,length,n,blocks,fov,B,offset,layout",
                          _WIDE_CASES)
 def test_wide_kernel_matches_plain(monkeypatch, width, length, n, blocks, fov,
-                                   B, offset, scratch):
+                                   B, offset, layout):
     """The wide kernel (forced here; ``kernel_for`` names it where the
     tile kernel cannot take the shape) against the plain version over 3
-    chained steps, with observations and without; on 10x10 with 4 droplets
-    (the main config's board) also against the tile kernel."""
+    chained steps, with observations and without."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     import warnings
-    if scratch:
+    if layout != "auto":
+        monkeypatch.setattr(dmfb_step, "wide_group_chips",
+                            lambda params, batch, observe=True: 0)
+    if layout == "scratch":
         monkeypatch.setattr(dmfb_step, "WIDE_SMEM_LIMIT", 0)
     monkeypatch.setattr(dmfb_step, "kernel_for",
                         lambda params, observe=True: "wide")

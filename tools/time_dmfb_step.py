@@ -16,7 +16,10 @@ time of one device-to-device copy that reads and writes as many bytes as
 the bound counts.  ``--kernel`` forces a kernel (default: the one
 ``kernel_for`` chooses), ``--no-obs`` times the transition alone.
 ``--tiles`` times the tile kernel at each given count of chips per block
-instead of the wrapper's own choice (``ops/dmfb_step.tile_chips``).
+instead of the wrapper's own choice (``ops/dmfb_step.tile_chips``).  For
+the wide kernel the line names its layout: the chips a group that
+``ops/dmfb_step.wide_group_chips`` chooses, 0 for one block a chip (a tree
+without that function has only the latter).
 ``--root`` takes the package from another checkout, for example an
 unpacked parent commit, so that two versions can be timed in one call.
 Each result is also printed as a JSON line.
@@ -99,16 +102,19 @@ def time_one(opts, cs, tdmfb, dmfb_step, choose, smi, root, board, p, batch):
                         lambda *a: "tile")(p, opts.observe) == "tile"
         used = tile if tile is not None else (
             choose(p, batch, opts.observe) if choose and tiled else None)
+        group = None if tiled else getattr(
+            dmfb_step, "wide_group_chips", lambda *a: 0)(p, batch,
+                                                         opts.observe)
         row = dict(root=root, board=board, droplets=opts.droplets,
                    kernel=opts.kernel or "default",
-                   observe=opts.observe, batch=batch, tile=used,
+                   observe=opts.observe, batch=batch, tile=used, group=group,
                    us=ms * 1e3,
                    bound_us=bound_ms and bound_ms * 1e3,
                    share=bound_ms and bound_ms / ms,
                    copy_us=copy_ms and copy_ms * 1e3, card=smi)
         print(f"[{smi}] {root}: {board}x{board}-{opts.droplets}d "
               f"{row['kernel']} observe={opts.observe} B={batch} "
-              f"tile={used}: kernel {ms * 1e3:.2f} us, bound "
+              f"tile={used} group={group}: kernel {ms * 1e3:.2f} us, bound "
               f"{row['bound_us']} us, share {row['share']}, copy of the "
               f"bound's bytes {row['copy_us']} us", flush=True)
         print(json.dumps(row), flush=True)
