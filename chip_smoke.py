@@ -43,7 +43,10 @@ Phases, each printing its seconds:
    EMA weights evaluated greedily on 20x20 and 50x50, the bf16 policy under
    ``--compute_dtype bf16`` on 50x50 and the v0.1 2-droplet policy on 10x10,
    100 tasks each, each held to its success rate in ``artifacts/README.md``
-   less ``SUCCESS_SLACK``; the kernel's no-observation mode (the v0.1
+   less ``SUCCESS_SLACK``; and the flagship recipe's policy that the port
+   trained from scratch on the card (``tools/time_to_quality_torch.py``,
+   the CLI's seed) on 50x50, held to its own recorded rate less
+   ``SUCCESS_SLACK``; the kernel's no-observation mode (the v0.1
    step's transition) against its plain version at B = 16384 and B = 100,
    and timed; a bf16 forward on the card against the CPU's, and timed
    beside float32; and a 2-epoch x 20-task degradation sweep on 50x50;
@@ -121,12 +124,21 @@ Phases, each printing its seconds:
    droplets on 160x160 at the CLI's net widths with a small ring, 2 cycles,
    each launching the wide kernel T times a rollout and the tile kernel
    never, with finite losses; and a greedy rollout of the flagship at
-   20x20-20d on the card equal to the same rollout on the CPU.
+   20x20-20d on the card equal to the same rollout on the CPU;
+12. learning from scratch: ``train dmfb --drop_num=2 --n_parallel_envs=64
+   --lr_decay --param_ema=0.999 --exact_steps=200000
+   --evaluate_cycle=50000`` (DMFB 10x10-2d, fov 9, VDN, at the CLI's
+   widths), its env steps through the tile kernel once per step of every
+   rollout; then checkpoint 0 and the final checkpoint through the
+   evaluate entry point, greedy over 100 tasks on 10x10: the untrained
+   policy must score at most 0.10 and the trained one at least 0.80, and
+   the phase must end within 240 s; its online curve and times are
+   printed.
 
 The kernel JSON line (both kernels' numbers), a training JSON line, a
 trained-policies JSON line, a MEDA/QMIX JSON line, a farm JSON line, a
-mesh JSON line and a bench JSON line (the entry points' lines) come before
-the last,
+mesh JSON line, a bench JSON line (the entry points' lines) and a
+learning JSON line come before the last,
 ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is non-zero and no result line is printed.  Exits
 non-zero at once where CUDA is unavailable.  Writes nothing but the kernel
@@ -177,10 +189,10 @@ TIMED_CYCLES = 3
 # every in-process train.main run means one device: under the default
 # --mesh auto a machine with several cards would start a rank a card
 ONE_DEVICE = "--mesh=off"
-# phase 6: the committed exports of JAX-trained policies, and the success
-# rates artifacts/README.md records for them (greedy, 100 tasks); a rate
-# below the record less SUCCESS_SLACK (about 4 binomial sigma at 100 tasks)
-# fails
+# phase 6: the committed exports of trained policies (JAX's, and one the
+# port trained), and the success rates recorded for them (greedy, 100
+# tasks; artifacts/README.md, the port's own artifact); a rate below the
+# record less SUCCESS_SLACK (about 4 binomial sigma at 100 tasks) fails
 WEIGHTS = os.path.join(ROOT, "tests", "fixtures", "torch_weights")
 POLICY_4D = os.path.join(WEIGHTS, "dmfb_10x10_4d_fov9_vdn")
 SUCCESS_SLACK = 0.08
@@ -191,6 +203,10 @@ TRAINED = [
     ("bf16_50x50", "dmfb_20x20_4d_bf16", 50, ["--compute_dtype=bf16"], 1.00),
     ("v01_2d_10x10", "dmfb_10x10_2d_fov9_vdn_v01", 10,
      ["--version=0.1", "--drop_num=2"], 1.00),
+    # the flagship recipe trained from scratch by the port on the card (the
+    # CLI's seed): its final rate in marl_dmfb_tpu_torch/artifacts/
+    # time_to_quality.json
+    ("port_flagship_50x50", "dmfb_20x20_4d_fov9_vdn_torch", 50, [], 1.00),
 ]
 # the bf16 forward on the card against the CPU's: the tolerances of
 # tests/test_torch_bf16.py (Q-values, hidden state)
@@ -302,6 +318,21 @@ WIDE_TRAIN_ARGV = ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=160",
                    f"--n_parallel_envs={WIDE_TRAIN_B}", "--buffer_size=32",
                    "--batch_size=8", f"--exact_steps={2 * WIDE_TRAIN_B * 640}",
                    f"--evaluate_task={WIDE_TRAIN_B}", ONE_DEVICE]
+# phase 12: learning from scratch.  DMFB 10x10-2d, fov 9, VDN, the lr-decay
+# + EMA recipe at the CLI's widths (the 2-droplet hyperparameters: 32 conv
+# channels, GRU 128, batch 128, replay 5000; B = 64 chips a rollout, 13
+# updates a cycle) for LEARN_STEPS env steps; checkpoint 0
+# and the final checkpoint scored greedy over 100 tasks on 10x10 through the
+# evaluate entry point: the first at most LEARN_UNTRAINED_MAX, the second at
+# least LEARN_TRAINED_MIN, the phase within LEARN_MAX_S seconds
+LEARN_STEPS = 200000
+LEARN_ARGV = ["dmfb", "--drop_num=2", "--fov=9", "--n_parallel_envs=64",
+              "--lr_decay", "--param_ema=0.999",
+              f"--exact_steps={LEARN_STEPS}", "--evaluate_cycle=50000",
+              ONE_DEVICE]
+LEARN_UNTRAINED_MAX = 0.10
+LEARN_TRAINED_MIN = 0.80
+LEARN_MAX_S = 240.0
 
 
 def log(msg):
@@ -1692,8 +1723,10 @@ def bench_entries(smi, T) -> dict:
     lines = bench_train.main([str(BENCH_TRAIN_B)],
                              learn_iters=BENCH_LEARN_ITERS, cycles=1,
                              cycle_warmup=0)
+    # the last line reads the port's committed time-to-quality artifact
     names = ["learn_step_ms", "learn_step_tflops",
-             "train_loop_env_steps_per_sec", "train_e2e"]
+             "train_loop_env_steps_per_sec", "train_e2e",
+             "time_to_quality_recorded"]
     if len(lines) != len(names):
         raise AssertionError(f"phase 10: bench_train printed {lines}")
     out["lines"] += [bench_line(x, w) for x, w in zip(lines, names)]
@@ -1907,6 +1940,67 @@ def wide_kernel(smi) -> dict:
     out["phase_s"]["train"] = time.perf_counter() - t0
     out["phase_s"]["total"] = time.perf_counter() - t11
     log(f"phase 11: {out['phase_s']['total']:.2f} s")
+    return out
+
+
+def learning(smi, seed=None) -> dict:
+    """Phase 12: a policy trained from scratch on the card (module
+    docstring), at the CLI's seed or ``seed``; raises on any failed check,
+    returns the numbers."""
+    from marl_dmfb_tpu_torch import evaluate, train
+    from marl_dmfb_tpu_torch.ops import dmfb_step
+
+    t12 = time.perf_counter()
+    data_dir = os.path.join(ROOT, "build", "chip_smoke_learning")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    argv = LEARN_ARGV + [f"--data_dir={data_dir}"] + (
+        [] if seed is None else [f"--seed={seed}"])
+    trainer, (tiles, wides) = counted(dmfb_step, lambda: train.main(argv))
+    train_s = time.perf_counter() - t12
+    targs, T = trainer.args, trainer.env.episode_limit
+    cycles, evals = trainer.n_cycles, len(trainer.success_rate)
+    width = (targs.hyper_hidden_dim, targs.rnn_hidden_dim, targs.batch_size,
+             targs.buffer_size, trainer.B, trainer.updates_per_rollout)
+    if width != (32, 128, 128, 5000, 64, 13):
+        raise AssertionError(f"phase 12 trained at (conv, hidden, batch, "
+                             f"replay, B, updates a cycle) = {width}")
+    if (tiles, wides) != (T * (cycles + evals), 0):
+        raise AssertionError(
+            f"training launched the tile kernel {tiles} and the wide kernel "
+            f"{wides} times, expected T x ({cycles} training + {evals} "
+            f"evaluation rollouts) and 0")
+    losses = torch.stack(trainer.losses).cpu()
+    if not bool(losses.isfinite().all()):
+        raise AssertionError("a training loss is not finite")
+    scores = {}
+    for tag in ("0", "final"):
+        m = evaluate.main(["dmfb", "--drop_num=2", "--fov=9",
+                           "--evaluate_task=100", f"--data_dir={data_dir}",
+                           f"--load_model_name={tag}"])
+        scores[tag] = m["success_rate"]
+    seconds = time.perf_counter() - t12
+    out = dict(seed=targs.seed, cycles=cycles, updates=trainer.learner
+               .train_step, curve=trainer.success_rate,
+               runtime=trainer.time_cost, untrained=scores["0"],
+               trained=scores["final"], launches=tiles, train_s=train_s,
+               seconds=seconds)
+    log(f"phase 12: [{smi}] trained 10x10-2d from scratch, seed "
+        f"{targs.seed}: {cycles} cycles of B=64, {out['updates']} updates, "
+        f"{targs.total_env_steps} env steps in {train_s:.2f} s; online "
+        f"success every {targs.evaluate_cycle} env steps "
+        f"{[round(x, 2) for x in trainer.success_rate]} at "
+        f"{[round(x, 1) for x in trainer.time_cost]} s; tile kernel "
+        f"launches {tiles} = T x ({cycles} + {evals})")
+    log(f"phase 12: evaluate checkpoint 0: success {scores['0']:.2f} (<= "
+        f"{LEARN_UNTRAINED_MAX}), final: {scores['final']:.2f} (>= "
+        f"{LEARN_TRAINED_MIN}); {seconds:.2f} s (<= {LEARN_MAX_S})")
+    # the rates are float32 counts of 100 tasks
+    if not (scores["0"] <= LEARN_UNTRAINED_MAX + 1e-6
+            and scores["final"] >= LEARN_TRAINED_MIN - 1e-6):
+        raise AssertionError(f"phase 12: untrained {scores['0']}, trained "
+                             f"{scores['final']}: the port did not learn")
+    if seconds > LEARN_MAX_S:
+        raise AssertionError(f"phase 12 took {seconds:.2f} s")
     return out
 
 
@@ -2191,6 +2285,7 @@ def main() -> int:
     phase9 = data_parallel(smi)
     phase10 = bench_entries(smi, T)
     phase11 = wide_kernel(smi)
+    phase12 = learning(smi)
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     log(smi)
@@ -2233,6 +2328,7 @@ def main() -> int:
         "mesh_rank_batch": MESH_B // 2,
         "launches_bench_actor": phase10["launches"]["actor_env_steps_per_sec"],
         "launches_bench_train": phase10["launches"]["bench_train"],
+        "launches_learning": phase12["launches"],
     }, {
         "name": "dmfb_step_wide",
         "route": "cuda",
@@ -2274,6 +2370,7 @@ def main() -> int:
     log(json.dumps({"wide": {k: v for k, v in phase11.items()
                              if k not in ("timed", "launches")},
                     "device": smi}))
+    log(json.dumps({"learning": phase12, "device": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -11,7 +11,14 @@ the CLI's widths.  Prints one JSON line per metric:
   n_episodes))`` updates: the reference's updates per collected episode),
   over 3 cycles;
 * ``train_e2e``: the same rate, with the replay ratio and the update's ms
-  in its unit.
+  in its unit;
+* ``time_to_quality_recorded`` (last, measured by no part of this run):
+  the wall seconds to the first checkpoint of at least 0.96 success on the
+  50x50 zero-shot board, of the port's own training of the flagship recipe
+  from scratch on the card, read from
+  ``marl_dmfb_tpu_torch/artifacts/time_to_quality.json`` (written by
+  ``tools/time_to_quality_torch.py``); nothing where that file is missing
+  or records no crossing.
 
 Usage::
 
@@ -19,15 +26,14 @@ Usage::
 
 B defaults to 1024 and dtype to ``float32`` (or ``bf16``).  JAX's
 ``vs_baseline`` of the rates divides by a north star set for a TPU host,
-and its TFLOP/s by a TPU's peak; here the rates' is null.  JAX's
-``time_to_quality_recorded`` line reads a committed artifact of a TPU
-training and measures nothing; it has no counterpart.
+and its TFLOP/s by a TPU's peak; here the rates' is null.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 from marl_dmfb_tpu_torch import replay as replay_lib
 from marl_dmfb_tpu_torch.algos.qlearn import QLearner
@@ -45,6 +51,8 @@ CYCLES = 3
 # (utils/platform.disable_tf32), and bf16 rounds the operands and multiplies
 # in float32 (networks._round), so this peak holds for both dtypes.
 PEAK_F32_FLOPS = 67e12
+TIME_TO_QUALITY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "artifacts", "time_to_quality.json")
 
 
 def estimate_learn_flops(args) -> float:
@@ -72,6 +80,28 @@ def estimate_learn_flops(args) -> float:
     f += H * A * 2                                  # the Q head
     samples = args.batch_size * args.n_agents * args.episode_limit
     return 4.0 * f * samples
+
+
+def time_to_quality_line(path: str = TIME_TO_QUALITY):
+    """JAX's ``time_to_quality_recorded`` line from the port's artifact at
+    ``path``: the default seed's first crossing, in wall seconds of its
+    training; None where there is no artifact or no crossing."""
+    try:
+        with open(path) as f:
+            ttq = json.load(f)
+        first, card = ttq["first_crossing"], ttq["card"]
+        return {
+            "metric": "time_to_quality_recorded",
+            "value": first["wall_s"],
+            "unit": (f"s wall-clock to >=0.96 on 50x50 zero-shot "
+                     f"({first['env_steps']} env steps, flagship 20x20 "
+                     f"recipe, {card})"),
+            "source": os.path.relpath(path, os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__)))),
+            "vs_baseline": None,
+        }
+    except (OSError, KeyError, TypeError, ValueError):
+        return None
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -140,6 +170,9 @@ def main(argv=None, learn_iters: int = LEARN_ITERS, cycles: int = CYCLES,
                   f"{dt_learn * 1e3:.2f} ms/update"),
          "vs_baseline": None},
     ]
+    ttq = time_to_quality_line()
+    if ttq is not None:
+        lines.append(ttq)
     for line in lines:
         print(json.dumps(line), flush=True)
     return lines

@@ -104,6 +104,17 @@ def _copy(dst: dict, src: dict):
             p.copy_(src[part][k])
 
 
+@torch.no_grad()
+def ema_update(ema: dict, live: dict, decay: float):
+    """``ema <- decay * ema + (1 - decay) * live`` in place, over trees of
+    named params (``{"agent": ..., "mixer": ...}``): the cycle's EMA step,
+    with the per-update decay compounded over the cycle's updates (JAX
+    trainer.py:266-271)."""
+    for part, params in ema.items():
+        for k, e in params.items():
+            e.copy_(decay * e + (1.0 - decay) * live[part][k])
+
+
 def _tile(n: int, mesh: Optional[Mesh], what: str) -> int:
     """``n`` rounded up to a multiple of the mesh's size (JAX
     trainer.py:181-189, 211-219)."""
@@ -380,13 +391,8 @@ class Trainer:
         self.losses.append(self.learner.learn_many(
             self.replay, self.updates_per_rollout, self.generator))
         if self.ema_net is not None:
-            d = self.cycle_decay
-            ema = _named(self.ema_net, self.ema_mixer)
-            live = _named(self.net, self.mixer)
-            with torch.no_grad():
-                for part, params in ema.items():
-                    for k, e in params.items():
-                        e.copy_(d * e + (1.0 - d) * live[part][k])
+            ema_update(_named(self.ema_net, self.ema_mixer),
+                       _named(self.net, self.mixer), self.cycle_decay)
         self.n_cycles += 1
         return int(all_reduce_sum(self.mesh, result.steps.sum()))
 

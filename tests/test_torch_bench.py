@@ -81,8 +81,11 @@ def test_train_bench(capsys, monkeypatch):
                         _narrow(bench_train.make_args))
     lines = _lines(capsys, bench_train.main(["8", "--device=cpu"],
                                             learn_iters=2, cycles=1))
+    # the last line reads the committed artifact of the port's training to
+    # quality (tests/test_torch_time_to_quality.py holds it)
     assert list(lines) == ["learn_step_ms", "learn_step_tflops",
-                           "train_loop_env_steps_per_sec", "train_e2e"]
+                           "train_loop_env_steps_per_sec", "train_e2e",
+                           "time_to_quality_recorded"]
     for name, line in lines.items():
         _check(line, vs_baseline_null=name != "learn_step_tflops")
     tflops = lines["learn_step_tflops"]

@@ -1,0 +1,282 @@
+"""The port's time-to-quality tool (``tools/time_to_quality_torch.py``)
+and ``bench_train``'s ``time_to_quality_recorded`` line, on the CPU.
+
+* The tool's fold, fed the success rates and wall times of the JAX
+  package's committed ``artifacts/time_to_quality.json``, gives that file's
+  own checkpoints, ``first_crossing`` and ``total_run`` for each entry.
+* A training of a few cycles at 5x5, scored at 5x5, writes an artifact with
+  JAX's keys; run again on a run directory whose run stopped early, the
+  tool resumes it and adds up the training's time over both runs.
+* ``bench_train`` reads the line from an artifact, with the ``metric`` and
+  ``vs_baseline`` of JAX's line, and gives none without one.
+"""
+
+import importlib.util
+import inspect
+import json
+import os
+import pathlib
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import bench_train as jbench_train
+from marl_dmfb_tpu_torch import bench_train, checkpoint
+from marl_dmfb_tpu_torch.algos.qlearn import make_optimizer
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+JAX_ARTIFACT = ROOT / "artifacts" / "time_to_quality.json"
+# a 5x5 board, 2 droplets, fov 5, 8 chips a rollout, a ring of 32, batches
+# of 8: 1,200 env steps, a checkpoint every 400
+SMALL = ["--chip_size=5", "--drop_num=2", "--fov=5", "--exact_steps=1200",
+         "--evaluate_cycle=400", "--buffer_size=32", "--batch_size=8",
+         "--n_parallel_envs=8"]
+
+
+def _tool():
+    spec = importlib.util.spec_from_file_location(
+        "time_to_quality_torch", ROOT / "tools" / "time_to_quality_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+ttq = _tool()
+
+
+@pytest.fixture(scope="module")
+def jax_artifact():
+    with open(JAX_ARTIFACT) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("entry,key", [
+    (None, "success_50x50"), ("meda_30x60_3d", "success"),
+    ("meda_30x60_4d_attempt", "success"), ("meda_30x60_4d_long", "success")],
+    ids=["flagship", "meda_30x60_3d", "meda_30x60_4d_attempt",
+         "meda_30x60_4d_long"])
+def test_fold_gives_jax_first_crossing(jax_artifact, entry, key):
+    want = jax_artifact if entry is None else jax_artifact[entry]
+    rows = want["checkpoints"]
+    got = ttq.fold([c[key] for c in rows], [c["wall_s"] for c in rows],
+                   first_tag=int(rows[0]["tag"]),
+                   total_steps=rows[-1]["env_steps"], key=key)
+    assert got["checkpoints"] == rows
+    assert got["quality_bar"] == want["quality_bar"] == ttq.QUALITY_BAR
+    assert got["total_run"] == want["total_run"]
+    first = want["first_crossing"]
+    if first is None:
+        assert got["first_crossing"] is None
+    else:
+        assert {k: got["first_crossing"][k] for k in first} == first
+    if entry is None:   # the flagship: 450k env steps, 0.99, 69.7 s
+        assert (first["env_steps"], first[key], first["wall_s"]) == (
+            450000, 0.99, 69.7)
+    elif entry == "meda_30x60_3d":
+        assert first["env_steps"] == 500000
+
+
+def _run(tmp, *extra):
+    return ttq.main(["--seed=3", f"--run_dir={tmp / 'run'}", "--device=cpu",
+                     f"--out={tmp / 'ttq.json'}", "--score_board=5",
+                     *extra, "--extra", *SMALL])
+
+
+@pytest.fixture(scope="module")
+def small_run(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("ttq")
+    torch.manual_seed(0)
+    return tmp, _run(tmp)
+
+
+def test_small_run_writes_jax_keys(small_run, jax_artifact):
+    tmp, entry = small_run
+    with open(tmp / "ttq.json") as f:
+        written = json.load(f)
+    flagship = {k for k, v in jax_artifact.items()
+                if k in ("checkpoints", "description", "first_crossing",
+                         "quality_bar", "total_run")}
+    assert flagship <= set(written) and written == json.loads(
+        json.dumps(entry))
+    assert [c["tag"] for c in entry["checkpoints"]] == ["0", "1", "2",
+                                                        "final"]
+    assert [c["env_steps"] for c in entry["checkpoints"]] == [0, 400, 800,
+                                                              1200]
+    for c in entry["checkpoints"]:
+        assert set(c) == set(jax_artifact["checkpoints"][0])
+        assert 0.0 <= c["success_50x50"] <= 1.0
+    walls = [c["wall_s"] for c in entry["checkpoints"]]
+    assert walls == sorted(walls) and walls[-1] > 0
+    assert set(entry["total_run"]) == set(jax_artifact["total_run"])
+    assert "--seed=3" in entry["description"]
+    assert "--lr_decay --param_ema=0.999" in entry["description"]
+    assert entry["card"] in entry["description"]
+    assert "resumed_at" not in entry
+    # the scores are the evaluate entry point's, one a checkpoint
+    with open(tmp / "run" / "scores.json") as f:
+        assert list(json.load(f)) == ["0_0", "0_1", "0_2", "0_final"]
+
+
+def test_second_seed_nests_and_deploy_export_loads(small_run):
+    tmp, entry = small_run
+    shutil.copytree(tmp / "run", tmp / "run1")
+    ttq.main(["--seed=3", f"--run_dir={tmp / 'run1'}", "--device=cpu",
+              f"--out={tmp / 'ttq.json'}", "--score_board=5",
+              "--key=seed_1_replication", "--extra", *SMALL])
+    with open(tmp / "ttq.json") as f:
+        written = json.load(f)
+    nested = written["seed_1_replication"]
+    assert nested["note"] == "same recipe, --seed=3"
+    assert nested["checkpoints"] == entry["checkpoints"]
+    assert written["first_crossing"] == entry["first_crossing"]
+    # the deploy export holds the final checkpoint's EMA params
+    final = checkpoint.load(str(tmp / "run" / "model" / "vdn" / "fov5" /
+                                "0_final_state.pt"))
+    deploy = checkpoint.load(str(tmp / "run" / "deploy" / "model" / "vdn" /
+                                 "fov5" / "0_final_state.pt"))
+    assert set(deploy) == {"ema", "epsilon", "net_config"}
+    for k, v in final["ema"]["agent"].items():
+        assert torch.equal(deploy["ema"]["agent"][k], v), k
+
+
+def test_stopped_run_resumes(small_run, tmp_path):
+    """A run stopped after its checkpoint 1 (its later checkpoints and
+    times gone) resumes from it as run 1 of the remaining 800 env steps,
+    with the whole run's learning-rate schedule; the artifact adds run 0's
+    time up to checkpoint 1 to run 1's."""
+    src, _ = small_run
+    shutil.copytree(src / "run", tmp_path / "run")
+    model = tmp_path / "run" / "model" / "vdn" / "fov5"
+    for tag in ("2", "final"):
+        os.remove(model / f"0_{tag}_state.pt")
+    os.remove(tmp_path / "run" / "scores.json")
+    curves = tmp_path / "run" / "TrainResult" / "vdn" / "fov5" / "5by5-2d0b"
+    for path in curves.glob("*_0.npy"):
+        np.save(path, np.load(path)[:2])
+    times = np.load(next(curves.glob("*runtime_0.npy")))
+    a = ttq.parse(["--seed=3", f"--run_dir={tmp_path / 'run'}",
+                   "--device=cpu", f"--out={tmp_path / 'ttq.json'}",
+                   "--score_board=5", "--extra", *SMALL])
+    trainer = ttq.train(a)
+    # the whole run's schedule: the horizon of a fresh run of 1,200 env
+    # steps, not of the 800 that remain; the count goes on from run 0's
+    whole = ttq._args(a).update_env_info(trainer.env.env_info())
+    assert trainer.args.total_env_steps == 800 != whole.total_env_steps
+    assert (trainer.learner.opt.decay_steps == make_optimizer(
+        whole).decay_steps != make_optimizer(trainer.args).decay_steps)
+    first = checkpoint.load(str(model / "0_1_state.pt"))
+    resumed = checkpoint.load(str(model / "1_final_state.pt"))
+    assert (int(resumed["learner"]["opt_state"]["schedule_count"])
+            == int(resumed["learner"]["train_step"])
+            > int(first["learner"]["train_step"]))
+    entry = ttq.write(a, ttq.score(a))
+    assert [c["tag"] for c in entry["checkpoints"]] == ["0", "1", "2",
+                                                        "final"]
+    assert entry["resumed_at"] == [{"tag": "1", "env_steps": 400,
+                                    "wall_s": float(times[1]), "as_run": 1}]
+    assert "resumed" in entry["description"]
+    walls = [c["wall_s"] for c in entry["checkpoints"]]
+    assert walls[:2] == times.tolist() and walls == sorted(walls)
+    assert ttq.train(a) is None   # ended: nothing to train
+
+
+def test_bench_train_line_from_an_artifact(small_run, tmp_path):
+    src, _ = small_run
+    path = tmp_path / "time_to_quality.json"
+    with open(src / "ttq.json") as f:
+        data = json.load(f)
+    data["first_crossing"] = data["checkpoints"][1]
+    with open(path, "w") as f:
+        json.dump(data, f)
+    line = bench_train.time_to_quality_line(str(path))
+    # JAX's line: this metric name and a null vs_baseline
+    source = inspect.getsource(jbench_train.main)
+    assert '"metric": "time_to_quality_recorded"' in source
+    assert '"vs_baseline": None' in source
+    assert line["metric"] == "time_to_quality_recorded"
+    assert line["vs_baseline"] is None
+    assert line["value"] == data["checkpoints"][1]["wall_s"]
+    assert line["unit"] == (
+        "s wall-clock to >=0.96 on 50x50 zero-shot (400 env steps, "
+        f"flagship 20x20 recipe, {data['card']})")
+    assert set(line) == {"metric", "value", "unit", "source", "vs_baseline"}
+
+
+def test_bench_train_line_needs_an_artifact_and_a_crossing(small_run,
+                                                         tmp_path):
+    assert bench_train.time_to_quality_line(
+        str(tmp_path / "missing.json")) is None
+    src, entry = small_run
+    assert entry["first_crossing"] is None   # an untrained 5x5 run
+    assert bench_train.time_to_quality_line(str(src / "ttq.json")) is None
+    assert bench_train.TIME_TO_QUALITY == str(
+        ROOT / "marl_dmfb_tpu_torch" / "artifacts" / "time_to_quality.json")
+
+
+PORT_ARTIFACT = ROOT / "marl_dmfb_tpu_torch" / "artifacts" / \
+    "time_to_quality.json"
+PORT_POLICY = ROOT / "tests" / "fixtures" / "torch_weights" / \
+    "dmfb_20x20_4d_fov9_vdn_torch"
+
+
+def test_committed_artifact_holds_two_seeds_of_the_recipe(jax_artifact):
+    """The port's artifact: the flagship recipe at the CLI's seed and at
+    ``--seed=1``, 41 checkpoints each (0..39 and final) scored on 50x50,
+    the card named, its first crossing the fold's."""
+    with open(PORT_ARTIFACT) as f:
+        data = json.load(f)
+    for entry, seed in ((data, 12), (data["seed_1_replication"], 1)):
+        rows = entry["checkpoints"]
+        assert [c["tag"] for c in rows] == [str(i) for i in range(40)] + [
+            "final"]
+        assert [c["env_steps"] for c in rows] == [
+            i * 50000 for i in range(40)] + [2000000]
+        assert set(rows[0]) == set(jax_artifact["checkpoints"][0])
+        assert f"--seed={seed}" in entry["description"]
+        for flag in ttq.RECIPE[1:]:
+            assert flag in entry["description"]
+        assert entry["card"] in entry["description"]
+        assert "H100" in entry["card"] and " W" in entry["card"]
+        assert entry == dict(entry, **ttq.fold(
+            [c["success_50x50"] for c in rows], [c["wall_s"] for c in rows]))
+    assert bench_train.time_to_quality_line()["value"] == (
+        data["first_crossing"]["wall_s"])
+
+
+def test_port_trained_export_loads_strictly():
+    """The default seed's final EMA params, committed as a deploy export,
+    load by name into the port's net with the net config they were saved
+    with, bitwise, and a tree with one entry more or less is refused."""
+    from marl_dmfb_tpu_torch.config import (get_evaluate_args,
+                                            make_env_from_args)
+    from marl_dmfb_tpu_torch.trainer import (Trainer, _named,
+                                             restore_net_config)
+
+    args = get_evaluate_args(["dmfb", "--drop_num=4", "--fov=9",
+                              "--chip_size=20", "--device=cpu",
+                              "--evaluate_task=4",
+                              f"--data_dir={PORT_POLICY}"])
+    path = checkpoint.model_state_path(args, "final")
+    assert path.endswith("0_final_state.pt")
+    assert os.path.getsize(path) < 2 ** 21
+    tree = checkpoint.load(path)
+    assert set(tree) == {"ema", "epsilon", "net_config"}
+    restore_net_config(args, "final")
+    assert (args.hyper_hidden_dim, args.rnn_hidden_dim) == (24, 128)
+    trainer = Trainer(make_env_from_args(args), args, eval_only=True)
+    trainer.load_model("final", params_only=True)
+    net = dict(trainer.net.named_parameters())
+    assert net.keys() == tree["ema"]["agent"].keys()
+    for k, v in tree["ema"]["agent"].items():
+        assert torch.equal(net[k], v), k
+    template = _named(trainer.net)
+    extra = {"agent": dict(tree["ema"]["agent"], extra=torch.zeros(1))}
+    missing = {"agent": {k: v for k, v in tree["ema"]["agent"].items()
+                         if k != "fc1.weight"}}
+    for bad in (extra, missing):
+        with pytest.raises(ValueError):
+            checkpoint.restructure(template, bad, path)
+    m = trainer.evaluate()
+    assert 0.0 <= m["success_rate"] <= 1.0 and 0 < m["steps"] <= 80

@@ -217,15 +217,39 @@ def assert_rings_equal(jr, tr):
 
 
 def check_composed(items=(), cycles=2, K=2):
+    """:func:`composed` with epsilon 0.6 and an anneal of 0.002 a step,
+    anew each cycle; returns the two rings and the port's learner."""
+    return composed(items, cycles, K)[:3]
+
+
+def check_long_horizon(items, cycles, data_dir, K=2):
+    """:func:`composed` with the trainers' schedules; returns the two
+    rings, the port's learner and the last epsilon."""
+    return composed(items, cycles, K, data_dir)
+
+
+def composed(items=(), cycles=2, K=2, data_dir=None):
     """``cycles`` cycles of rollout (JAX's draws replayed; with the global
     states under QMIX) -> ``store`` -> ``learn_many`` (``K`` updates, with
     JAX's minibatch indices: ``keys = split(key, K)``, ``randint(keys[k],
     (batch,), 0, max(size, 1))``) in both packages, from the same state,
     on a ring of ``buffer_size`` episodes.  The episodes and the rings are
-    held equal exactly, the losses and params to the tolerances above."""
+    held equal exactly, the losses and params to the tolerances above.
+
+    With ``data_dir`` (where JAX's ``Trainer`` makes its directories) the
+    cycles carry the trainers' schedules: epsilon starts at ``epsilon`` and
+    anneals by each package's ``Trainer.anneal_per_step``, carried from
+    cycle to cycle (held equal exactly), and under ``--param_ema`` each
+    package's EMA step (JAX's ``Trainer._ema_step``, the port's
+    ``trainer.ema_update`` at ``Trainer.cycle_decay``) follows each cycle,
+    the EMA params held as the params are.  Else epsilon is 0.6 with an
+    anneal of 0.002 a step, anew each cycle.  Returns the two rings, the
+    port's learner and the last epsilon."""
     from marl_dmfb_tpu import replay as jreplay
+    from marl_dmfb_tpu import trainer as jtrainer
     from marl_dmfb_tpu.rollout import make_rollout as jmake_rollout
     from marl_dmfb_tpu_torch import replay as treplay
+    from marl_dmfb_tpu_torch import trainer as ttrainer
     from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
     from marl_dmfb_tpu_torch.envs import meda as tmeda
     from marl_dmfb_tpu_torch.rollout import make_rollout as tmake_rollout
@@ -248,19 +272,42 @@ def check_composed(items=(), cycles=2, K=2):
                              obs_dtype=tenv.params.obs_dtype,
                              state_dim=state_dim)
     states = jax.vmap(jenv.init)(jax.random.split(jax.random.PRNGKey(6), B))
-    eps, anneal = 0.6, 0.002
+    eps, anneal, jema = 0.6, 0.002, None
+    if data_dir is not None:
+        ja.data_dir, ja.evaluate_task = str(data_dir), B
+        ta.data_dir, ta.evaluate_task = str(data_dir), B
+        jt, tt = jtrainer.Trainer(jenv, ja), ttrainer.Trainer(tenv, ta)
+        assert (jt.updates_per_rollout, tt.updates_per_rollout) == (K, K)
+        eps, anneal = np.float32(jt.epsilon), jt.anneal_per_step
+        assert np.float32(tt.epsilon) == eps
+        assert np.float32(tt.anneal_per_step) == anneal
+        t_eps, t_anneal = tt.epsilon, tt.anneal_per_step
+        if ja.param_ema:
+            jema = jst.params
+            live = ttrainer._named(port.net, port.mixer)
+            tema = {part: {k: v.detach().clone() for k, v in d.items()}
+                    for part, d in live.items()}
+            assert np.float32(jt._ema_step(1.0, 0.0)) == np.float32(
+                tt.cycle_decay)
     noisy = {k: np.zeros(v.shape, bool) for k, v in port.all_params.items()}
     updates = 0
     for cycle in range(cycles):
         key = jax.random.PRNGKey(10 + cycle)
         jres = jroll(jst.params["agent"], states, key, jnp.float32(eps),
-                     jnp.float32(anneal), jnp.float32(0.05))
+                     jnp.float32(anneal), jnp.float32(ja.min_epsilon))
         reset = jax.jit(jax.vmap(jenv.reset))(states)
         noise = replay_noise(key, reset, ja.episode_limit, B, N, A)
         t_reset = to_port(reset)
         troll = tmake_rollout(tenv._replace(reset=lambda s, g: t_reset),
                               port.net, ta.rnn_hidden_dim, with_state=qmix)
-        tres = troll(to_port(states), None, eps, anneal, 0.05, noise=noise)
+        if data_dir is None:
+            tres = troll(to_port(states), None, eps, anneal, 0.05,
+                         noise=noise)
+        else:
+            tres = troll(to_port(states), None, t_eps, t_anneal,
+                         ta.min_epsilon, noise=noise)
+            eps, t_eps = jres.epsilon, tres.epsilon
+            assert np.float32(t_eps) == np.float32(eps), cycle
         assert tres.episodes.keys() == jres.episodes.keys()
         for k in jres.episodes:
             np.testing.assert_array_equal(
@@ -298,5 +345,10 @@ def check_composed(items=(), cycles=2, K=2):
         assert_params_close(agent_np(jst.target_params),
                             flat_names(state["target_params"]), noisy,
                             ja.lr, updates, f"cycle {cycle}: target ")
+        if jema is not None:
+            jema = jt._ema_step(jema, jst.params)
+            ttrainer.ema_update(tema, live, tt.cycle_decay)
+            assert_params_close(agent_np(jema), flat_names(tema), noisy,
+                                ja.lr, updates, f"cycle {cycle}: EMA ")
         states = jres.env_states
-    return jr, tr, port
+    return jr, tr, port, float(eps)
