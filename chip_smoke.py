@@ -55,9 +55,12 @@ Phases, each printing its seconds:
    bool and observation outputs bitwise, rewards within 1e-6), the step's
    time at B = 64 and B = 8192 and the MEDA actor's env-steps/s at
    B = 8192; the JAX package's MEDA VDN, MEDA QMIX and DMFB QMIX policies
-   (the last also on 50x50, its 20x20 mixer dropped) through the evaluate
-   entry point, 100 tasks each, held to their recorded rates less
-   ``SUCCESS_SLACK``, with the kernel launched T times a DMFB QMIX rollout;
+   (the last also on 50x50, its 20x20 mixer dropped) and the MEDA
+   30x60-3d VDN policy that the port trained from scratch on the card
+   (``tools/time_to_quality_torch.py --recipe meda_30x60_3d``, the CLI's
+   seed) through the evaluate entry point, 100 tasks each, held to their
+   recorded rates less ``SUCCESS_SLACK``, with the kernel launched T times
+   a DMFB QMIX rollout;
    ``train meda --drop_num=4`` and ``train dmfb --alg=qmix
    --chip_size=20`` at the CLI's widths for a few cycles, timed; the QMIX
    learner of MEDA 30x60-3d on the card against the CPU; and a 2-epoch x
@@ -232,6 +235,11 @@ MEDA_TRAINED = [
     ("meda_vdn_30x60_4d", MEDA_VDN, ["meda", "--drop_num=4"], 0.96),
     ("meda_qmix_30x60_3d", "meda_30x60_3d_fov19_qmix",
      ["meda", "--drop_num=3", "--alg=qmix"], 0.98),
+    # JAX's MEDA 3-droplet recipe trained from scratch by the port on the
+    # card (the CLI's seed), its newest checkpoint: its independent_final
+    # in marl_dmfb_tpu_torch/artifacts/time_to_quality.json
+    ("meda_vdn_30x60_3d_port", "meda_30x60_3d_fov19_vdn_torch",
+     ["meda", "--drop_num=3"], 0.95),
     ("dmfb_qmix_20x20", "dmfb_20x20_4d_fov9_qmix",
      ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=20", "--alg=qmix"],
      1.00),

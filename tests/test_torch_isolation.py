@@ -2,7 +2,7 @@
 card's tools (``tools/profile_torch_rollout.py``,
 ``tools/profile_torch_learn.py``, ``tools/profile_torch_mesh.py``,
 ``tools/time_dmfb_step.py``, ``tools/repeat_torch_benches.py``,
-``tools/time_to_quality_torch.py``)
+``tools/time_to_quality_torch.py``, ``tools/time_to_quality_seeds.py``)
 import nothing of JAX, its libraries, YAML, matplotlib or the JAX package
 (the GPU machine has none of them), nor the one JAX-side tool of the port,
 ``tools/export_flax_npz.py``, whose ``.npz`` files they read with numpy;
@@ -25,7 +25,8 @@ PORT_FILES = sorted((ROOT / "marl_dmfb_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / "profile_torch_mesh.py",
     ROOT / "tools" / "time_dmfb_step.py",
     ROOT / "tools" / "repeat_torch_benches.py",
-    ROOT / "tools" / "time_to_quality_torch.py"]
+    ROOT / "tools" / "time_to_quality_torch.py",
+    ROOT / "tools" / "time_to_quality_seeds.py"]
 EXPORTER = ROOT / "tools" / "export_flax_npz.py"
 # the committed export of the 10x10-4d policy that the evaluation tests load
 POLICY = ROOT / "tests" / "fixtures" / "torch_weights" / "dmfb_10x10_4d_fov9_vdn"

@@ -17,6 +17,10 @@ import json
 import os
 import pathlib
 import shutil
+import signal
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -235,7 +239,7 @@ def test_committed_artifact_holds_two_seeds_of_the_recipe(jax_artifact):
             i * 50000 for i in range(40)] + [2000000]
         assert set(rows[0]) == set(jax_artifact["checkpoints"][0])
         assert f"--seed={seed}" in entry["description"]
-        for flag in ttq.RECIPE[1:]:
+        for flag in ttq.RECIPES["flagship"].flags[1:]:
             assert flag in entry["description"]
         assert entry["card"] in entry["description"]
         assert "H100" in entry["card"] and " W" in entry["card"]
@@ -280,3 +284,282 @@ def test_port_trained_export_loads_strictly():
             checkpoint.restructure(template, bad, path)
     m = trainer.evaluate()
     assert 0.0 <= m["success_rate"] <= 1.0 and 0 < m["steps"] <= 80
+
+
+# MEDA 15x30, 2 droplets (T = 45), 4 chips a rollout, a ring of 16, batches
+# of 4, 10 tasks an online evaluation: 1,200 env steps, a checkpoint every
+# 400
+SMALL_MEDA = ["--width=15", "--length=30", "--drop_num=2",
+              "--exact_steps=1200", "--evaluate_cycle=400",
+              "--buffer_size=16", "--batch_size=4", "--n_parallel_envs=4",
+              "--evaluate_task=10"]
+MEDA_POLICY = ROOT / "tests" / "fixtures" / "torch_weights" / \
+    "meda_30x60_3d_fov19_vdn_torch"
+
+
+def _meda(tmp, *flags, seed=3):
+    return ["--recipe=meda_30x60_3d", f"--seed={seed}",
+            f"--run_dir={tmp / 'meda'}", "--device=cpu",
+            f"--out={tmp / 'ttq.json'}", *flags, "--extra", *SMALL_MEDA]
+
+
+class Killed(Exception):
+    """The training's process ended from outside, as by a signal."""
+
+
+@pytest.fixture(scope="module")
+def meda_run(tmp_path_factory):
+    """A MEDA run killed in its third online evaluation (its checkpoint 2
+    saved, that checkpoint's time not yet recorded), folded; then resumed
+    to its end and folded, into a copy of the port's committed artifact
+    without its MEDA entry.  Returns the directory, the artifact after the
+    killed run and after the whole one, and the resumed trainer."""
+    from marl_dmfb_tpu_torch.trainer import Trainer
+
+    tmp = tmp_path_factory.mktemp("ttq_meda")
+    with open(PORT_ARTIFACT) as f:
+        committed = json.load(f)
+    committed.pop("meda_30x60_3d", None)
+    with open(tmp / "ttq.json", "w") as f:
+        json.dump(committed, f)
+    torch.manual_seed(0)
+    evaluate, calls = Trainer.evaluate, iter(range(10 ** 6))
+
+    def killed_in_third(self, *args, **kwargs):
+        if next(calls) == 2:
+            raise Killed
+        return evaluate(self, *args, **kwargs)
+
+    # one thread: these small ops take several times longer on many
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(Trainer, "evaluate", killed_in_third)
+            with pytest.raises(Killed):
+                ttq.main(_meda(tmp))
+        ttq.main(_meda(tmp, "--no_train"))
+        with open(tmp / "ttq.json") as f:
+            stopped = json.load(f)
+        trainer = ttq.train(ttq.parse(_meda(tmp)))
+        ttq.main(_meda(tmp, "--no_train"))
+    finally:
+        torch.set_num_threads(threads)
+    with open(tmp / "ttq.json") as f:
+        whole = json.load(f)
+    return tmp, stopped, whole, trainer
+
+
+def test_meda_recipe_is_jax_letter_for_letter():
+    """The MEDA recipe trains JAX's flags (``artifacts/time_to_quality.json``
+    ``meda_30x60_3d``) at the MEDA defaults, 2M env steps; the flagship
+    stays the default."""
+    a = ttq.parse(["--recipe=meda_30x60_3d", "--run_dir=x", "--device=cpu"])
+    assert ttq.train_argv(a)[:5] == ["meda", "--drop_num=3",
+                                     "--n_parallel_envs=64", "--lr_decay",
+                                     "--param_ema=0.999"]
+    args = ttq._args(a)
+    assert (args.total_env_steps, args.evaluate_cycle) == (2_000_000, 50000)
+    assert (args.width, args.length, args.fov, args.version) == (
+        30, 60, 19, "0.2")
+    assert (args.seed, args.mesh) == (12, "off")
+    assert ttq.parse(["--run_dir=x"]).recipe == "flagship"
+
+
+def test_stopped_meda_run_folds_as_far_as_it_reached(meda_run, jax_artifact):
+    tmp, stopped, _, _ = meda_run
+    entry = stopped["meda_30x60_3d"]
+    assert [c["tag"] for c in entry["checkpoints"]] == ["0", "1"]
+    assert [c["env_steps"] for c in entry["checkpoints"]] == [0, 400]
+    # how far it reached, the horizon it trains to, no final
+    run = entry["total_run"]
+    assert (run["env_steps"], run["horizon"]) == (400, 1200)
+    assert "success_final" not in run and "resumed_at" not in entry
+    assert run["independent_final"]["tag"] == "1"
+    model = tmp / "meda" / "model" / "vdn" / "fov19"
+    assert not (model / "0_final_state.pt").exists()
+    # checkpoint 2 was saved, but without its time it is no resume point
+    assert (model / "0_2_state.pt").exists()
+    assert ttq.segments(ttq.parse(_meda(tmp)))[0][2] == 1
+    # the flagship's entries as they were
+    with open(PORT_ARTIFACT) as f:
+        committed = json.load(f)
+    assert {k: v for k, v in stopped.items() if k != "meda_30x60_3d"} == {
+        k: v for k, v in committed.items() if k != "meda_30x60_3d"}
+
+
+def test_meda_run_writes_jax_keys_from_the_online_curve(meda_run,
+                                                       jax_artifact):
+    """Resumed, the run ends at its horizon with the whole run's
+    learning-rate schedule; its entry has the keys of JAX's
+    ``meda_30x60_3d``, its checkpoints the trainer's online curve, and an
+    ``independent_final`` of the final checkpoint."""
+    tmp, _, whole, trainer = meda_run
+    entry = whole["meda_30x60_3d"]
+    want = jax_artifact["meda_30x60_3d"]
+    assert set(want) - {"seed_1_replication"} <= set(entry)
+    assert [c["tag"] for c in entry["checkpoints"]] == ["0", "1", "2",
+                                                        "final"]
+    assert [c["env_steps"] for c in entry["checkpoints"]] == [0, 400, 800,
+                                                              1200]
+    for c in entry["checkpoints"]:
+        assert set(c) == set(want["checkpoints"][0])
+    curves = tmp / "meda" / "TrainResult" / "vdn" / "fov19" / "15by30-2d0b"
+    online = [np.load(next(curves.glob(f"*success_rate_{run}.npy")))
+              for run in (0, 1)]
+    assert [c["success"] for c in entry["checkpoints"]] == [
+        round(float(x), 2) for x in (*online[0][:2], *online[1][1:])]
+    assert set(entry["total_run"]) == {"env_steps", "wall_s",
+                                       "success_final", "independent_final"}
+    independent = entry["total_run"]["independent_final"]
+    assert set(independent) == {"tag", "n_tasks", "steps", "success"}
+    assert (independent["tag"], independent["n_tasks"]) == ("final", 100)
+    assert 0 < independent["steps"] <= 45
+    assert entry["resumed_at"] == [{
+        "tag": "1", "env_steps": 400, "as_run": 1,
+        "wall_s": entry["checkpoints"][1]["wall_s"]}]
+    assert "--seed=3" in entry["description"]
+    assert "meda --drop_num=3 --n_parallel_envs=64 --lr_decay " \
+        "--param_ema=0.999 --evaluate_cycle=50000" in entry["description"]
+    args = ttq._args(ttq.parse(_meda(tmp)))
+    whole_args = args.update_env_info(trainer.env.env_info())
+    assert trainer.args.total_env_steps == 800 != whole_args.total_env_steps
+    assert (trainer.learner.opt.decay_steps
+            == make_optimizer(whole_args).decay_steps)
+    # the deploy export holds the final checkpoint's EMA params
+    final = checkpoint.load(str(tmp / "meda" / "model" / "vdn" / "fov19" /
+                                "1_final_state.pt"))
+    deploy = checkpoint.load(str(tmp / "meda" / "deploy" / "model" / "vdn" /
+                                 "fov19" / "0_final_state.pt"))
+    for k, v in final["ema"]["agent"].items():
+        assert torch.equal(deploy["ema"]["agent"][k], v), k
+    assert ttq.train(ttq.parse(_meda(tmp))) is None
+
+
+def test_second_meda_seed_nests_in_the_meda_entry(meda_run, tmp_path):
+    src, _, whole, _ = meda_run
+    shutil.copytree(src / "meda", tmp_path / "meda")
+    shutil.copy(src / "ttq.json", tmp_path / "ttq.json")
+    ttq.main(_meda(tmp_path, "--no_train", "--key=seed_1_replication",
+                   seed=1))
+    with open(tmp_path / "ttq.json") as f:
+        written = json.load(f)
+    entry = written["meda_30x60_3d"]
+    nested = entry.pop("seed_1_replication")
+    assert nested["note"] == "same recipe, --seed=1"
+    assert "--seed=1" in nested["description"]
+    assert nested["checkpoints"] == entry["checkpoints"]
+    assert entry == whole["meda_30x60_3d"]
+    assert {k: v for k, v in written.items() if k != "meda_30x60_3d"} == {
+        k: v for k, v in whole.items() if k != "meda_30x60_3d"}
+
+
+def test_committed_artifact_holds_two_meda_seeds(jax_artifact):
+    """The port's MEDA entry: JAX's recipe at the CLI's seed and at
+    ``--seed=1``, each with a checkpoint every 50k past 800k scored by the
+    trainer's online evaluation, the card named, the newest checkpoint
+    evaluated independently, and its first crossing the fold's."""
+    with open(PORT_ARTIFACT) as f:
+        meda = json.load(f)["meda_30x60_3d"]
+    flags = ("meda --drop_num=3 --n_parallel_envs=64 --lr_decay "
+             "--param_ema=0.999 --evaluate_cycle=50000")
+    for entry, seed in ((meda, 12), (meda["seed_1_replication"], 1)):
+        rows = entry["checkpoints"]
+        ended = rows[-1]["tag"] == "final"
+        n = len(rows) - ended
+        assert n >= 17   # 0 .. 16, 800k env steps
+        assert [c["tag"] for c in rows[:n]] == [str(i) for i in range(n)]
+        assert [c["env_steps"] for c in rows[:n]] == [
+            i * 50000 for i in range(n)]
+        assert set(rows[0]) == set(jax_artifact["meda_30x60_3d"][
+            "checkpoints"][0])
+        assert f"{flags} --seed={seed} (2000000 env steps" in (
+            entry["description"])
+        assert entry["card"] in entry["description"]
+        assert "H100" in entry["card"] and " W" in entry["card"]
+        independent = entry["total_run"]["independent_final"]
+        assert independent["n_tasks"] == 100
+        assert independent["tag"] == rows[-1]["tag"]
+        assert entry["resumed_at"]
+        folded = ttq.fold([c["success"] for c in rows],
+                          [c["wall_s"] for c in rows], key="success",
+                          ended=ended)
+        first = folded.pop("first_crossing")
+        assert {k: v for k, v in entry["first_crossing"].items()
+                if k != "after_resume_at"} == first
+        folded["total_run"]["independent_final"] = independent
+        assert entry == dict(entry, **folded)
+
+
+def test_port_trained_meda_export_loads_strictly():
+    """The MEDA seed-12 run's newest EMA params, committed as a deploy
+    export, load by name into the port's MEDA 3-droplet net bitwise, and a
+    greedy rollout of a few tasks on the CPU runs."""
+    from marl_dmfb_tpu_torch.config import (get_evaluate_args,
+                                            make_env_from_args)
+    from marl_dmfb_tpu_torch.trainer import Trainer, restore_net_config
+
+    args = get_evaluate_args(["meda", "--drop_num=3", "--device=cpu",
+                              "--evaluate_task=3",
+                              f"--data_dir={MEDA_POLICY}"])
+    path = checkpoint.model_state_path(args, "final")
+    assert path.endswith("vdn/fov19/0_final_state.pt")
+    assert os.path.getsize(path) < 2 ** 21
+    tree = checkpoint.load(path)
+    assert set(tree) == {"ema", "epsilon", "net_config"}
+    restore_net_config(args, "final")
+    trainer = Trainer(make_env_from_args(args), args, eval_only=True)
+    assert (args.width, args.length, args.n_agents) == (30, 60, 3)
+    trainer.load_model("final", params_only=True)
+    net = dict(trainer.net.named_parameters())
+    assert net.keys() == tree["ema"]["agent"].keys()
+    for k, v in tree["ema"]["agent"].items():
+        assert torch.equal(net[k], v), k
+    m = trainer.evaluate()
+    assert 0.0 <= m["success_rate"] <= 1.0 and 0 < m["steps"] <= 90
+
+
+def _seeds_tool():
+    spec = importlib.util.spec_from_file_location(
+        "time_to_quality_seeds", ROOT / "tools" / "time_to_quality_seeds.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_seeds_fail_on_a_signal_not_on_the_budget():
+    """A process that exits 0 passes, one that runs past the deadline is
+    ended there and passes, and one that exits 3 or dies of a signal
+    fails."""
+    seeds = _seeds_tool()
+    code = {1: "pass", 2: "import time; time.sleep(60)",
+            3: "raise SystemExit(3)",
+            4: "import os, signal; os.kill(os.getpid(), signal.SIGKILL)"}
+    procs = [(seed, subprocess.Popen([sys.executable, "-c", c]))
+             for seed, c in code.items()]
+    start = time.monotonic()
+    assert seeds.wait(procs, start + 5.0) == [3, 4]
+    assert time.monotonic() - start < 30
+    assert procs[1][1].returncode == -signal.SIGTERM
+
+
+def test_packed_run_keeps_what_resumes_it(meda_run, tmp_path):
+    """``tools/time_to_quality_seeds.py``'s pack keeps the checkpoint each
+    run resumes from (run 0's checkpoint 1, not its newer 2, whose time
+    was never recorded) and its final one, the curves, the scores and the
+    deploy export, and the tool reads the same runs from it."""
+    seeds = _seeds_tool()
+    src, _, _, _ = meda_run
+    seeds.pack(ttq.parse(_meda(src)), str(tmp_path / "meda"))
+    model = tmp_path / "meda" / "model" / "vdn" / "fov19"
+    assert sorted(p.name for p in model.iterdir()) == [
+        "0_1_state.pt", "1_1_state.pt", "1_final_state.pt"]
+    assert (tmp_path / "meda" / "scores.json").exists()
+    assert (tmp_path / "meda" / "deploy" / "model" / "vdn" / "fov19" /
+            "0_final_state.pt").exists()
+    assert ttq.segments(ttq.parse(_meda(tmp_path))) == ttq.segments(
+        ttq.parse(_meda(src)))
+    a = seeds.parse(["--recipe=meda_30x60_3d", "--seeds", "12", "1",
+                     "--budget=10", f"--out={tmp_path}"])
+    assert [seeds.key(a, s) for s in a.seeds] == ["default",
+                                                  "seed_1_replication"]

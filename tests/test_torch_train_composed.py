@@ -12,7 +12,8 @@ float-noise gradients); the episodes, the rings and epsilon exactly."""
 import numpy as np
 import pytest
 
-from tests.torch_learn_util import QMIX, check_composed, check_long_horizon
+from tests.torch_learn_util import (QMIX, SMALL_MEDA, check_composed,
+                                    check_long_horizon)
 
 
 def test_rollout_store_learn_many_match_jax():
@@ -25,13 +26,18 @@ def test_rollout_store_learn_many_match_jax():
 
 # a ring of 6 episodes filled 4 a cycle; epsilon from 1 to its floor of
 # 0.05 over 100 schedule steps (4 chips x 20 steps a cycle); a cosine lr
-# over int(150 / (2 * 15)) = 5 updates; an EMA of 0.9 an update
+# over int(150 / (2 * 15)) = 5 updates; an EMA of 0.9 an update.  On MEDA
+# 15x30 (T = 45) the same flags: epsilon at its floor within the first
+# cycle, the lr over int(150 / (2 * 33)) = 2 updates, an episode a chip a
+# cycle as on DMFB
 LONG = (("buffer_size", 6), ("anneal_steps", 100), ("lr_decay", True),
         ("n_steps", 150), ("param_ema", 0.9))
 
 
-@pytest.mark.parametrize("items", [LONG, LONG + QMIX], ids=["vdn", "qmix"])
-def test_long_horizon_matches_jax(tmp_path, items):
+@pytest.mark.parametrize("items,decay", [
+    (LONG, 5), (LONG + QMIX, 5), (LONG + SMALL_MEDA, 2),
+    (LONG + QMIX + SMALL_MEDA, 2)], ids=["vdn", "qmix", "meda", "meda_qmix"])
+def test_long_horizon_matches_jax(tmp_path, items, decay):
     """Five cycles of 2 updates with the trainers' schedules: epsilon
     reaches its floor, the target syncs every 2 updates (5 syncs), the ring
     wraps three times, the lr runs past its decay horizon, and the EMA
@@ -41,4 +47,4 @@ def test_long_horizon_matches_jax(tmp_path, items):
     assert eps == np.float32(0.05)
     assert updates // port.args.target_update_cycle >= 2
     assert tr.size == 6 and tr.cursor == 5 * 4 % 6   # 20 episodes stored
-    assert updates > port.opt.decay_steps == 5
+    assert updates > port.opt.decay_steps == decay

@@ -1,52 +1,71 @@
 #!/usr/bin/env python3
-"""Time to quality of the PyTorch port: the flagship recipe trained from
-scratch, every checkpoint scored on the 50x50 zero-shot board, the results
-folded into ``marl_dmfb_tpu_torch/artifacts/time_to_quality.json`` in the
-layout of the JAX package's ``artifacts/time_to_quality.json``.
+"""Time to quality of the PyTorch port: a recipe of the JAX package's
+``artifacts/time_to_quality.json`` trained from scratch, every checkpoint
+scored, the results folded into
+``marl_dmfb_tpu_torch/artifacts/time_to_quality.json`` in the layout of
+JAX's entry.
 
     python3 tools/time_to_quality_torch.py --seed 12 --run_dir build/ttq/s12
     python3 tools/time_to_quality_torch.py --seed 1 --run_dir build/ttq/s1 \\
         --key seed_1_replication
+    python3 tools/time_to_quality_torch.py --recipe meda_30x60_3d \\
+        --seed 12 --run_dir build/ttq/m12
 
-Three steps, each skipped where the run directory already holds its
-result, so that running the command again carries on where it stopped:
+The recipes (:data:`RECIPES`): ``flagship`` (the default; JAX's top-level
+entry), DMFB 20x20 with 4 droplets, every checkpoint scored on the 50x50
+zero-shot board; ``meda_30x60_3d`` (JAX's entry of that name), MEDA 30x60
+with 3 droplets, every checkpoint's success the trainer's online
+evaluation.  Three steps, each skipped where the run directory already
+holds its result, so that running the command again carries on where it
+stopped:
 
-1. **train**: the train CLI with the recipe (:data:`RECIPE`) and
+1. **train**: the trainer, its arguments parsed by the train CLI's
+   parser from the recipe's flags and
    ``--evaluate_cycle=50000 --seed=<s> --data_dir=<run dir>`` (a checkpoint
-   and an online 20x20 evaluation every 50k env steps, 2M in all).  Where
-   the run directory holds a run that stopped before its final checkpoint,
-   the training resumes from its newest checkpoint whose time is recorded,
-   as a new run (``--ith_run`` one up) of the remaining env steps; its
-   learning-rate schedule keeps the whole run's horizon, which the train
-   CLI's ``--load_model`` would size to the remaining steps.  Without
-   ``--ckpt_replay`` (not in the recipe) the replay ring starts empty there.
-2. **score**: every checkpoint through the evaluate entry point,
-   ``--chip_size=50 --evaluate_task=100 --load_model_name=<tag>``: the
-   checkpoint's EMA params, greedy, on the same 100 tasks for every tag
-   (the CLI's evaluation seed); each score is kept in ``scores.json`` as it
-   comes.
-3. **fold**: the checkpoints (``tag``, ``env_steps``, ``wall_s``,
-   ``success_50x50``), ``first_crossing`` (the first with success at least
-   :data:`QUALITY_BAR`, else null), ``quality_bar``, ``total_run``, the
-   card and its power limit, and a ``description`` naming the recipe,
-   under ``--key`` (``default``: the file's top level, as JAX's flagship
-   entry; else a nested entry, such as ``seed_1_replication``).
-   ``wall_s`` is the training's own clock at each checkpoint
-   (``Trainer.time_cost``, the online evaluations and checkpoint saves
-   included, as JAX's); over a resumed run it adds up the time spent
-   training up to each resume point, and the entry says where it resumed.
-   The final checkpoint's EMA params are also written as a deploy export,
-   ``<run dir>/deploy/model/vdn/fov9/0_final_state.pt`` (``deploy`` as the
-   data directory of ``evaluate``).
+   and an online evaluation of 100 fresh tasks of the training board every
+   50k env steps, 2M in all).  Where the run directory holds a run that
+   stopped before its final checkpoint, the training resumes from its
+   newest checkpoint whose time is recorded, as a new run (``--ith_run``
+   one up) of the remaining env steps; its learning-rate schedule keeps
+   the whole run's horizon, which the train CLI's ``--load_model`` would
+   size to the remaining steps.  Without ``--ckpt_replay`` (not in the
+   recipes) the replay ring starts empty there.  A run is cut by ending
+   its process (``tools/time_to_quality_seeds.py`` does so at a time
+   budget); never by lowering ``n_steps``, which would write a final
+   checkpoint.
+2. **score**: the flagship's every checkpoint through the evaluate entry
+   point, ``--chip_size=50 --evaluate_task=100 --load_model_name=<tag>``:
+   the checkpoint's EMA params, greedy, on the same 100 tasks for every tag
+   (the CLI's evaluation seed).  An online recipe's checkpoints keep the
+   trainer's own curve (``<prefix>success_rate_<run>.npy``: the EMA params,
+   greedy, on 100 fresh tasks of the training board), and its newest
+   checkpoint alone goes through the evaluate entry point on the training
+   board, 100 tasks, as ``total_run.independent_final``.  Each score is
+   kept in ``scores.json`` as it comes.
+3. **fold**: the checkpoints (``tag``, ``env_steps``, ``wall_s`` and the
+   recipe's success key), ``first_crossing`` (the first with success at
+   least :data:`QUALITY_BAR`, else null; marked ``after_resume_at`` where
+   the run resumed before it), ``quality_bar``, ``total_run``, the card and
+   its power limit, and a ``description`` naming the recipe, under the
+   recipe's entry and ``--key`` (``default``: the entry itself, for the
+   flagship the file's top level; else a nested entry, such as
+   ``seed_1_replication``).  ``wall_s`` is the training's own clock at each
+   checkpoint (``Trainer.time_cost``, the online evaluations and checkpoint
+   saves included, as JAX's); over a resumed run it adds up the time spent
+   training up to each resume point, and the entry says where it resumed
+   (``resumed_at``).  A run that has not reached its final checkpoint is
+   folded as far as it reached: no ``final`` checkpoint, and ``total_run``
+   at its newest checkpoint with the ``horizon`` it trains to.  The newest
+   checkpoint's EMA params are also written as a deploy export,
+   ``<run dir>/deploy/model/vdn/fov<fov>/0_final_state.pt`` (``deploy`` as
+   the data directory of ``evaluate``).
 
-``--no_train`` scores and folds what the run directory holds (for a
-training stopped by a time limit: score it, keep its newest checkpoint,
-and resume it later).  ``--device cpu`` runs it on the CPU (default: the
-card), and ``--extra``
-appends flags to the training (for a run cut in size; the description
-names them) and ``--score_board`` sets the scoring board.  A run of the
-recipe takes tens of minutes on an H100: start it in the background, with
-its output in a file.
+``--no_train`` scores and folds what the run directory holds.  ``--device
+cpu`` runs it on the CPU (default: the card), and ``--extra`` appends
+flags to the training (for a run cut in size; the description names them)
+and ``--score_board`` sets the flagship's scoring board.  A run of a
+recipe takes tens of minutes or more on an H100: start it in the
+background, with its output in a file.
 """
 
 from __future__ import annotations
@@ -57,21 +76,38 @@ import os
 import platform
 import sys
 import time
+from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-RECIPE = ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=20",
-          "--n_parallel_envs=64", "--lr_decay", "--param_ema=0.999"]
+class Recipe(NamedTuple):
+    flags: list      # the training's flags, the JAX package's
+    entry: str       # the artifact's key ("" for its top level)
+    success: str     # the checkpoints' success key
+    online: bool     # success from the trainer's online evaluation
+
+
+RECIPES = {
+    "flagship": Recipe(
+        ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=20",
+         "--n_parallel_envs=64", "--lr_decay", "--param_ema=0.999"],
+        "", "success_50x50", False),
+    "meda_30x60_3d": Recipe(
+        ["meda", "--drop_num=3", "--n_parallel_envs=64", "--lr_decay",
+         "--param_ema=0.999"],
+        "meda_30x60_3d", "success", True),
+}
 EVALUATE_CYCLE = 50000
 QUALITY_BAR = 0.96
-SUCCESS = "success_50x50"
+N_TASKS = 100
 ARTIFACT = os.path.join(ROOT, "marl_dmfb_tpu_torch", "artifacts",
                         "time_to_quality.json")
 
 
 def parse(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--recipe", default="flagship", choices=list(RECIPES))
     p.add_argument("--seed", type=int, default=12)
     p.add_argument("--run_dir", required=True)
     p.add_argument("--key", default="default")
@@ -79,8 +115,8 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument("--out", default=ARTIFACT)
     p.add_argument("--score_board", type=int, default=50)
     p.add_argument("--no_train", action="store_true",
-                   help="score what the run directory holds, and fold it "
-                        "where the run has ended, without training")
+                   help="score and fold what the run directory holds, "
+                        "without training")
     p.add_argument("--extra", nargs=argparse.REMAINDER, default=[],
                    help="flags appended to the training's (last)")
     return p.parse_args(argv)
@@ -96,7 +132,8 @@ def card(device: str) -> str:
 
 
 def train_argv(a, run: int = 0) -> list:
-    return (RECIPE + [f"--evaluate_cycle={EVALUATE_CYCLE}",
+    return (RECIPES[a.recipe].flags + [
+                      f"--evaluate_cycle={EVALUATE_CYCLE}",
                       f"--seed={a.seed}", f"--data_dir={a.run_dir}",
                       f"--ith_run={run}", f"--device={a.device}",
                       "--mesh=off"] + a.extra)
@@ -107,14 +144,15 @@ def _args(a, run: int = 0):
     return get_train_args(train_argv(a, run), pri=False)
 
 
-def runtime(a, run: int) -> list:
+def runtime(a, run: int, curve: str = "runtime") -> list:
     """Run ``run``'s recorded times, one a checkpoint (the curve the
-    trainer writes after each evaluation), or []."""
+    trainer writes after each evaluation), or [] (``curve``: another of
+    its curves, such as ``success_rate``)."""
     import numpy as np
     from marl_dmfb_tpu_torch.trainer import curve_dir, curve_prefix
     args = _args(a, run)
     path = os.path.join(curve_dir(args),
-                        f"{curve_prefix(args)}runtime_{run}.npy")
+                        f"{curve_prefix(args)}{curve}_{run}.npy")
     return np.load(path).tolist() if os.path.isfile(path) else []
 
 
@@ -149,60 +187,64 @@ def segments(a) -> list:
 def train(a):
     """Step 1 (module docstring); returns the trainer, or None where the
     run had ended."""
-    from marl_dmfb_tpu_torch import train as ttrain
     from marl_dmfb_tpu_torch.config import make_env_from_args
     from marl_dmfb_tpu_torch.trainer import Trainer
     from marl_dmfb_tpu_torch.utils.platform import select_device
 
     segs = segments(a)
-    if not segs:
-        return ttrain.main(train_argv(a))
-    run, _, last, done = segs[-1]
-    if done:
+    if segs and segs[-1][3]:
         return None
-    args = _args(a, run + 1)
-    base = sum(s[2] for s in segs) * args.evaluate_cycle
-    remaining = args.total_env_steps - base
-    print(f"time_to_quality: resuming run {run} from its checkpoint {last} "
-          f"({base} env steps) as run {run + 1}, {remaining} env steps to "
-          "go", flush=True)
-    args.load_model, args.load_model_name = True, f"{run}_{last}"
+    args = _args(a, len(segs))
     select_device(args.device)
     trainer = Trainer(make_env_from_args(args), args)
-    trainer.load_model(args.load_model_name)
-    # the optimizer's schedule was sized for the whole run; the loop runs
-    # the rest
-    args.n_steps = remaining
-    trainer.run()
+    if segs:
+        run, _, last, _ = segs[-1]
+        base = sum(s[2] for s in segs) * args.evaluate_cycle
+        remaining = args.total_env_steps - base
+        print(f"time_to_quality: resuming run {run} from its checkpoint "
+              f"{last} ({base} env steps) as run {run + 1}, {remaining} env "
+              "steps to go", flush=True)
+        args.load_model, args.load_model_name = True, f"{run}_{last}"
+        trainer.load_model(args.load_model_name)
+        # the optimizer's schedule was sized for the whole run; the loop
+        # runs the rest
+        args.n_steps = remaining
+    trainer.run(args.online_eval)
     return trainer
 
 
 def checkpoint_list(a) -> tuple:
-    """``(rows, resumed)``: ``(file tag, wall_s)`` of every checkpoint of
-    the whole run in order, the file tag ``<run>_<tag>`` (a resumed run's
-    checkpoint 0 repeats the one it resumed from and is left out), and
-    where the run resumed.  The ``i``-th row is the whole run's checkpoint
-    ``i``, at ``i`` evaluation cycles of env steps (nominal, as JAX's
-    artifact counts them), the last its final one."""
-    rows, resumed, done_steps, clock = [], [], 0, 0.0
+    """``(rows, resumed)``: ``(file tag, wall_s, online success)`` of every
+    checkpoint of the whole run in order, the file tag ``<run>_<tag>`` (a
+    resumed run's checkpoint 0 repeats the one it resumed from and is left
+    out), and where the run resumed.  The ``i``-th row is the whole run's
+    checkpoint ``i``, at ``i`` evaluation cycles of env steps (nominal, as
+    JAX's artifact counts them), the last its final one where the run has
+    ended, else its newest."""
+    rows, resumed, done_steps, wall = [], [], 0, 0.0
     cycle = _args(a).evaluate_cycle
-    for run, times, last, done in segments(a):
+    segs = segments(a)
+    for run, times, last, done in segs:
+        online = runtime(a, run, "success_rate")
         n = len(times) - 1 if done else last + 1
-        rows += [(f"{run}_{i}", clock + times[i])
+        rows += [(f"{run}_{i}", wall + times[i], round(online[i], 2))
                  for i in range(1 if run else 0, n)]
         if done:
-            rows.append((f"{run}_final", clock + times[-1]))
-        else:
+            rows.append((f"{run}_final", wall + times[-1],
+                         round(online[-1], 2)))
+        elif run < segs[-1][0]:
             done_steps += last * cycle
-            clock += times[last]
+            wall += times[last]
             resumed.append({"tag": str(done_steps // cycle),
-                            "env_steps": done_steps, "wall_s": clock,
+                            "env_steps": done_steps, "wall_s": wall,
                             "as_run": run + 1})
     return rows, resumed
 
 
 def score(a) -> dict:
-    """Step 2 (module docstring): ``{"<run>_<tag>": success}``."""
+    """Step 2 (module docstring): ``{"<run>_<tag>": success}`` of the
+    flagship's checkpoints, or of an online recipe's ``{"<run>_<tag>":
+    {"n_tasks", "steps", "success"}}`` of its newest checkpoint."""
     from marl_dmfb_tpu_torch import evaluate
     path = os.path.join(a.run_dir, "scores.json")
     scores = {}
@@ -210,18 +252,27 @@ def score(a) -> dict:
         with open(path) as f:
             scores = json.load(f)
     t = _args(a)
-    for i, (name, _) in enumerate(checkpoint_list(a)[0]):
-        if name in scores:
+    rows = checkpoint_list(a)[0]
+    online = RECIPES[a.recipe].online
+    for i, (name, _, _) in enumerate(rows):
+        if name in scores or online and i < len(rows) - 1:
             continue
-        m = evaluate.main(["dmfb", f"--drop_num={t.drop_num}",
-                           f"--fov={t.fov}",
-                           f"--chip_size={a.score_board}",
-                           "--evaluate_task=100", f"--data_dir={a.run_dir}",
+        board = ([f"--width={t.width}", f"--length={t.length}",
+                  f"--version={t.version}"] if online
+                 else [f"--chip_size={a.score_board}"])
+        m = evaluate.main([t.name, f"--drop_num={t.drop_num}",
+                           f"--fov={t.fov}", *board,
+                           f"--evaluate_task={N_TASKS}",
+                           f"--data_dir={a.run_dir}",
                            f"--load_model_name={name}",
                            f"--device={a.device}"])
-        scores[name] = round(float(m["success_rate"]), 2)
-        print(f"time_to_quality: checkpoint {i} ({name}): "
-              f"{SUCCESS} {scores[name]:.2f}", flush=True)
+        success = round(float(m["success_rate"]), 2)
+        scores[name] = success if not online else {
+            "tag": "final" if name.endswith("_final") else str(i),
+            "n_tasks": N_TASKS, "steps": round(float(m["steps"]), 1),
+            "success": success}
+        print(f"time_to_quality: checkpoint {i} ({name}): {scores[name]}",
+              flush=True)
         with open(path, "w") as f:
             json.dump(scores, f, indent=1)
     return scores
@@ -229,44 +280,68 @@ def score(a) -> dict:
 
 def fold(success: list, wall_s: list, first_tag: int = 0,
          cycle: int = EVALUATE_CYCLE, total_steps: int = 2_000_000,
-         bar: float = QUALITY_BAR, key: str = SUCCESS) -> dict:
+         bar: float = QUALITY_BAR,
+         key: str = RECIPES["flagship"].success,
+         ended: bool = True) -> dict:
     """The checkpoints, ``first_crossing``, ``quality_bar`` and
     ``total_run`` of an artifact entry in JAX's layout, from one success
     rate and one wall time a checkpoint: tags ``first_tag``, ``first_tag +
     1``, ... at ``cycle`` env steps each, the last one the final checkpoint
-    at ``total_steps`` (``tools/scratch_ttq_meda.py``'s fold)."""
+    at ``total_steps`` (``tools/scratch_ttq_meda.py``'s fold), or, where
+    the run has not ``ended``, its newest, and ``total_run`` how far it
+    reached."""
     checkpoints = [{"tag": str(first_tag + i),
                     "env_steps": (first_tag + i) * cycle,
                     "wall_s": w, key: s}
                    for i, (s, w) in enumerate(zip(success, wall_s))]
-    checkpoints[-1].update(tag="final", env_steps=total_steps)
-    final = checkpoints[-1]
+    last = checkpoints[-1]
+    if ended:
+        last.update(tag="final", env_steps=total_steps)
+        total_run = {"env_steps": total_steps, "wall_s": last["wall_s"],
+                     f"{key}_final": last[key]}
+    else:
+        total_run = {"env_steps": last["env_steps"],
+                     "wall_s": last["wall_s"], "horizon": total_steps}
     return {
         "quality_bar": bar,
         "first_crossing": next((c for c in checkpoints if c[key] >= bar),
                                None),
-        "total_run": {"env_steps": total_steps, "wall_s": final["wall_s"],
-                      f"{key}_final": final[key]},
+        "total_run": total_run,
         "checkpoints": checkpoints,
     }
 
 
 def describe(a, device: str, resumed) -> str:
-    flags = RECIPE[1:] + [f"--evaluate_cycle={EVALUATE_CYCLE}",
-                          f"--seed={a.seed}"] + a.extra
+    recipe = RECIPES[a.recipe]
+    flags = recipe.flags + [f"--evaluate_cycle={EVALUATE_CYCLE}",
+                            f"--seed={a.seed}"] + a.extra
     args = _args(a)
+    board = f"{args.width}x{args.length}"
+    if recipe.online:
+        scored = (
+            f"every checkpoint's success is the trainer's online evaluation:"
+            f" the EMA params, greedy, on {N_TASKS} fresh tasks of the "
+            f"{board} training board; the newest checkpoint is also scored "
+            "by python -m marl_dmfb_tpu_torch.evaluate "
+            f"{args.name} --drop_num={args.drop_num} "
+            f"--evaluate_task={N_TASKS} (total_run.independent_final)")
+    else:
+        scored = (
+            "every checkpoint's EMA params scored greedy on the "
+            f"{a.score_board}x{a.score_board} zero-shot board, 100 random "
+            "tasks, by python -m marl_dmfb_tpu_torch.evaluate "
+            f"--chip_size={a.score_board} --evaluate_task=100")
+    what = ("the flagship recipe" if a.recipe == "flagship"
+            else f"the {a.recipe} recipe")
     return (
-        "Time-to-quality of the flagship recipe trained by the PyTorch "
-        f"port: python -m marl_dmfb_tpu_torch.train dmfb {' '.join(flags)} "
+        f"Time-to-quality of {what} trained by the PyTorch port: python -m "
+        f"marl_dmfb_tpu_torch.train {' '.join(flags)} "
         f"({args.total_env_steps} env steps, a checkpoint every "
-        f"{args.evaluate_cycle} env steps); every checkpoint's EMA params "
-        f"scored greedy on the {a.score_board}x{a.score_board} zero-shot "
-        "board, 100 random tasks, by python -m marl_dmfb_tpu_torch.evaluate "
-        f"--chip_size={a.score_board} --evaluate_task=100.  Measured "
+        f"{args.evaluate_cycle} env steps); {scored}.  Measured "
         f"{time.strftime('%Y-%m-%d')} on {device} by "
         "tools/time_to_quality_torch.py (wall_s: the training's clock, "
-        "Trainer.time_cost, including the online 20x20 evaluations and the "
-        "checkpoint saves"
+        f"Trainer.time_cost, including the online {board} evaluations and "
+        "the checkpoint saves"
         + ("; over a run resumed from a checkpoint, the time spent training "
            "up to each resume point, then the resumed run's"
            if resumed else "") + ").")
@@ -276,48 +351,69 @@ def write(a, scores: dict) -> dict:
     """Step 3 (module docstring); returns the entry written."""
     from marl_dmfb_tpu_torch import checkpoint
 
+    recipe = RECIPES[a.recipe]
     rows, resumed = checkpoint_list(a)
+    segs = segments(a)
+    ended = segs[-1][3]
     args = _args(a)
     device = card(a.device)
+    newest = rows[-1][0]
     entry = {"description": describe(a, device, resumed), "card": device,
-             **fold([scores[name] for name, _ in rows],
-                    [wall for _, wall in rows], cycle=args.evaluate_cycle,
-                    total_steps=args.total_env_steps)}
+             **fold([row[2] if recipe.online else scores[row[0]]
+                     for row in rows],
+                    [wall for _, wall, _ in rows], cycle=args.evaluate_cycle,
+                    total_steps=args.total_env_steps, key=recipe.success,
+                    ended=ended)}
+    if recipe.online:
+        entry["total_run"]["independent_final"] = scores[newest]
+    first = entry["first_crossing"]
+    behind = [r["tag"] for r in resumed
+              if first is not None and r["env_steps"] < first["env_steps"]]
+    if behind:
+        entry["first_crossing"] = dict(first, after_resume_at=behind[-1])
     if resumed:
         entry["resumed_at"] = resumed
     data = {}
     if os.path.isfile(a.out):
         with open(a.out) as f:
             data = json.load(f)
+    # a recipe's entry, its nested seeds kept
+    into = data.setdefault(recipe.entry, {}) if recipe.entry else data
     if a.key == "default":
-        data.update(entry)
+        if not resumed:
+            into.pop("resumed_at", None)
+        into.update(entry)
     else:
-        data[a.key] = dict(entry, note=f"same recipe, --seed={a.seed}")
+        into[a.key] = dict(entry, note=f"same recipe, --seed={a.seed}")
     os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
     with open(a.out, "w") as f:
         json.dump(data, f, indent=1)
         f.write("\n")
-    tree = checkpoint.load(_ckpt(a, rows[-1][0].split("_")[0], "final"))
+    run, tag = newest.split("_", 1)
+    tree = checkpoint.load(_ckpt(a, run, tag))
     args.data_dir = os.path.join(a.run_dir, "deploy")
     checkpoint.save(checkpoint.model_state_path(args, "final", write=True),
                     {k: tree[k] for k in ("ema", "epsilon", "net_config")})
-    print(f"time_to_quality: {a.key}: first crossing "
-          f"{entry['first_crossing']}, final {entry['checkpoints'][-1]}",
+    print(f"time_to_quality: {recipe.entry or 'flagship'} {a.key}: first "
+          f"crossing {entry['first_crossing']}, "
+          f"{'final' if ended else 'newest'} {entry['checkpoints'][-1]}",
           flush=True)
     return entry
 
 
 def main(argv=None):
-    """Returns the entry written, or None where the run has not ended."""
+    """Returns the entry written, or None where the run directory holds no
+    checkpoint."""
     a = parse(argv)
     if not a.no_train:
         train(a)
-    scores = score(a)
-    segs = segments(a)
-    if not (segs and segs[-1][3]):
-        print("time_to_quality: the run has not ended; run again to resume "
-              "it", flush=True)
+    if not checkpoint_list(a)[0]:
+        print("time_to_quality: no checkpoint to fold", flush=True)
         return None
+    scores = score(a)
+    if not segments(a)[-1][3]:
+        print("time_to_quality: the run has not ended; folded as far as it "
+              "reached, run again to resume it", flush=True)
     return write(a, scores)
 
 
