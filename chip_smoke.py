@@ -14,8 +14,11 @@ Phases, each printing its seconds:
    main path's) and all four of the wide kernel's (its group and chip
    layouts, each with and without observations) must not spill;
 2. hold the kernel against its plain PyTorch version on the card (integer,
-   bool and usage outputs bitwise equal, rewards within 1e-5) at three
-   shapes, three chained steps each;
+   bool and usage outputs bitwise equal, rewards within 1e-5), with
+   observations and without, three chained steps each, at the shapes of
+   ``KERNEL_CMP``: each of its 4-, 8- and 16-droplet instantiations at
+   20x20 and at 50x50 (the boards of the trained policies and of the
+   degradation sweeps), with and without obstacle blocks;
 3. drive the evaluate entry point (DMFB 10x10, 4 droplets, fov 9, CRNN at
    the evaluation width) on the committed export of the JAX package's
    trained 10x10-4d policy, and check that the env step went through the
@@ -37,30 +40,44 @@ Phases, each printing its seconds:
    update count is 32 a cycle, that the target moved and differs from the
    params, and that the final checkpoint reloads bitwise through the
    evaluate entry point; hold 3 learner updates on the card against the same
-   updates on the CPU; and time an update, a cycle and the env steps;
+   updates on the CPU, and a learner under ``--remat`` and one under
+   ``--fused_streams`` against the plain learner on the card (the same
+   tolerances); and time an update of each (with its peak memory), a cycle
+   and the env steps;
 6. trained policies on the card, from the JAX package's artifacts exported
    to ``tests/fixtures/torch_weights/`` (numpy only): the 20x20 flagship's
    EMA weights evaluated greedily on 20x20 and 50x50, the bf16 policy under
-   ``--compute_dtype bf16`` on 50x50 and the v0.1 2-droplet policy on 10x10,
-   100 tasks each, each held to its success rate in ``artifacts/README.md``
-   less ``SUCCESS_SLACK``; and the flagship recipe's policy that the port
-   trained from scratch on the card (``tools/time_to_quality_torch.py``,
+   ``--compute_dtype bf16`` on 50x50, the v0.1 2-droplet policy on 10x10,
+   and every other DMFB policy of the JAX package on its boards (5 and 10
+   droplets, the tile kernel's 8- and 16-droplet instantiations; 2 obstacle
+   blocks; 2 and 3 droplets, v0 and v0.1), each held to its success rate in
+   ``artifacts/README.md`` less ``SUCCESS_SLACK``, over 100 tasks, or 500
+   where that rate is below 0.95; and the flagship recipe's policy that the
+   port trained from scratch on the card (``tools/time_to_quality_torch.py``,
    the CLI's seed) on 50x50, held to its own recorded rate less
-   ``SUCCESS_SLACK``; the kernel's no-observation mode (the v0.1
+   ``SUCCESS_SLACK``; each rollout launching the tile kernel T times and
+   the wide kernel never; greedy rollouts of the 4-, 5- and 10-droplet
+   policies (``GREEDY_CMP``) on the card and on the CPU from the same chips
+   and draws, half of them on worn electrodes, which must give the same
+   episodes; the kernel's no-observation mode (the v0.1
    step's transition) against its plain version at B = 16384 and B = 100,
    and timed; a bf16 forward on the card against the CPU's, and timed
-   beside float32; and a 2-epoch x 20-task degradation sweep on 50x50;
+   beside float32; and 2-epoch x 20-task degradation sweeps on 50x50 of the
+   4-droplet policy and of the 10-droplet one, the latter held to JAX's
+   mean success over the same epochs of its sweep less ``SUCCESS_SLACK``;
 7. MEDA and QMIX: a full 30x60-4d MEDA episode (T = 90) of the plain
    PyTorch step on the card against the CPU in v0, v0.1 and v0.2 (integer,
    bool and observation outputs bitwise, rewards within 1e-6), the step's
    time at B = 64 and B = 8192 and the MEDA actor's env-steps/s at
-   B = 8192; the JAX package's MEDA VDN, MEDA QMIX and DMFB QMIX policies
-   (the last also on 50x50, its 20x20 mixer dropped) and the MEDA
-   30x60-3d VDN policy that the port trained from scratch on the card
-   (``tools/time_to_quality_torch.py --recipe meda_30x60_3d``, the CLI's
-   seed) through the evaluate entry point, 100 tasks each, held to their
-   recorded rates less ``SUCCESS_SLACK``, with the kernel launched T times
-   a DMFB QMIX rollout;
+   B = 8192; the JAX package's MEDA VDN policies (30x60 at 2, 3 and 4
+   droplets, the 4-droplet seed-12 policy zero-shot on 45x90 and 60x120,
+   80x80-10d), MEDA QMIX and DMFB QMIX policies (the last also on 50x50,
+   its 20x20 mixer dropped) and the MEDA 30x60-3d VDN policy that the port
+   trained from scratch on the card (``tools/time_to_quality_torch.py
+   --recipe meda_30x60_3d``, the CLI's seed) through the evaluate entry
+   point, 100 tasks each (500 where the recorded rate is below 0.95), held
+   to their recorded rates less ``SUCCESS_SLACK``, with the kernel launched
+   T times a DMFB QMIX rollout;
    ``train meda --drop_num=4`` and ``train dmfb --alg=qmix
    --chip_size=20`` at the CLI's widths for a few cycles, timed; the QMIX
    learner of MEDA 30x60-3d on the card against the CPU; and a 2-epoch x
@@ -136,12 +153,24 @@ Phases, each printing its seconds:
    evaluate entry point, greedy over 100 tasks on 10x10: the untrained
    policy must score at most 0.10 and the trained one at least 0.80, and
    the phase must end within 240 s; its online curve and times are
-   printed.
+   printed;
+13. JAX's largest configuration, ``train meda --drop_num=10`` (80x80,
+   T = 160, batch 128, a 10,000-episode ring, 2 chips a rollout) at the
+   CLI's widths, 3 cycles without ``--remat`` and 3 with it, each with
+   every loss finite, an update's and a cycle's times and the run's peak
+   memory; and the update under ``--remat`` against the one without on
+   the card on one minibatch (loss within 1e-5, gradients within 1e-6 of
+   their norm).  It comes after phase 12: its ring holds 16 GiB of the
+   card.
+
+The phases run in this order but for phase 8, which runs last: its
+``torch.profiler`` trace leaves every later launch of the process slower,
+and the phases after it are timed.
 
 The kernel JSON line (both kernels' numbers), a training JSON line, a
 trained-policies JSON line, a MEDA/QMIX JSON line, a farm JSON line, a
-mesh JSON line, a bench JSON line (the entry points' lines) and a
-learning JSON line come before the last,
+mesh JSON line, a bench JSON line (the entry points' lines), a
+learning JSON line and a MEDA 80x80-10d JSON line come before the last,
 ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is non-zero and no result line is printed.  Exits
 non-zero at once where CUDA is unavailable.  Writes nothing but the kernel
@@ -151,6 +180,7 @@ under ``build/``.
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -172,6 +202,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
 KERNEL_B = 16384           # actor batch of the timing phase
 EVAL_B = 100               # evaluation batch (evaluate_task=100)
+# phase 2: (width, droplets, blocks, chips) held to the plain version, with
+# observations and without: each tile instantiation (4, 8, 16 droplets)
+# on the trained policies' and the sweeps' boards
+KERNEL_CMP = ((10, 4, 0, KERNEL_B), (20, 4, 2, 1024), (20, 5, 0, 1024),
+              (20, 10, 0, 1024), (50, 4, 0, 1024), (50, 4, 2, 1024),
+              (50, 5, 0, 1024), (50, 10, 0, 1024))
 TIMED_LAUNCHES = 50
 REWARD_ATOL = 1e-5         # float32 sums of up to 16 rewards, other order
 TRAIN_B = 64               # chips a training rollout (32 updates a cycle)
@@ -210,14 +246,52 @@ TRAINED = [
     # CLI's seed): its final rate in marl_dmfb_tpu_torch/artifacts/
     # time_to_quality.json
     ("port_flagship_50x50", "dmfb_20x20_4d_fov9_vdn_torch", 50, [], 1.00),
+    # the rest of the JAX package's DMFB policies: 5 and 10 droplets (the
+    # tile kernel's 8- and 16-droplet instantiations), obstacle blocks (a
+    # block mask), 2 and 3 droplets, v0.1 at 3; the 20x20 10d and 4d2b and
+    # the 10x10 3d rates over 500 tasks (RESULTS.md:377-378 for the 10d)
+    ("10d_20x20", "dmfb_20x20_10d_fov9_vdn", 20, ["--drop_num=10"], 0.73),
+    ("10d_50x50", "dmfb_20x20_10d_fov9_vdn", 50, ["--drop_num=10"], 0.96),
+    ("5d_20x20", "dmfb_20x20_5d_fov9_vdn", 20, ["--drop_num=5"], 0.98),
+    ("5d_50x50", "dmfb_20x20_5d_fov9_vdn", 50, ["--drop_num=5"], 0.98),
+    ("4d2b_20x20", "dmfb_20x20_4d2b_8m", 20, ["--block_num=2"], 0.932),
+    ("4d2b_30x30", "dmfb_30x30_4d2b_8m", 30, ["--block_num=2"], 0.982),
+    ("4d2b_50x50", "dmfb_30x30_4d2b_8m", 50, ["--block_num=2"], 1.00),
+    ("2d_10x10", "dmfb_10x10_2d_fov9_vdn", 10, ["--drop_num=2"], 1.00),
+    ("2d_20x20", "dmfb_10x10_2d_fov9_vdn", 20, ["--drop_num=2"], 0.99),
+    ("3d_10x10", "dmfb_10x10_3d_fov9_vdn", 10, ["--drop_num=3"], 0.92),
+    ("3d_50x50", "dmfb_10x10_3d_fov9_vdn", 50, ["--drop_num=3"], 0.99),
+    ("v01_3d_10x10", "dmfb_10x10_3d_fov9_vdn_v01", 10,
+     ["--version=0.1", "--drop_num=3"], 0.99),
+    ("v01_3d_20x20", "dmfb_10x10_3d_fov9_vdn_v01", 20,
+     ["--version=0.1", "--drop_num=3"], 1.00),
 ]
+# SUCCESS_SLACK is about 4 binomial sigma only near a rate of 0.95; a policy
+# recorded below that is evaluated over LOW_RATE_TASKS tasks, where it is
+# at least 4 sigma (0.079 at 0.73)
+LOW_RATE = 0.95
+LOW_RATE_TASKS = 500
+
+
+def eval_tasks(recorded: float) -> int:
+    return LOW_RATE_TASKS if recorded < LOW_RATE else EVAL_B
 # the bf16 forward on the card against the CPU's: the tolerances of
 # tests/test_torch_bf16.py (Q-values, hidden state)
 BF16_Q_ATOL = 1e-2
 BF16_H_ATOL = 2e-2
 BF16_ROWS = 8192                  # rows compared, card against CPU
 BF16_TIMED_ROWS = KERNEL_B * 4    # one actor step's rows: B chips x N agents
+# greedy rollouts of GREEDY_B chips, card against CPU, half of them worn:
+# the 4-, 8- and 16-droplet instantiations under a policy (TRAINED names)
+GREEDY_CMP = ("flagship_50x50", "5d_20x20", "5d_50x50", "10d_50x50")
+GREEDY_B = 64
 SWEEP = dict(board=50, epochs=2, tasks=20)
+# the 10-droplet policy's sweep on 50x50, the first SWEEP_10D epochs of the
+# DegreData row 50by50-10d0b (BASELINE.json's evaDegre workload): JAX's
+# mean success over those epochs (artifacts/DegreData/50by50-10d0b/
+# success.npy, epochs 0-1: 0.94 and 0.93) less SUCCESS_SLACK is its floor
+SWEEP_10D = dict(board=50, epochs=2, tasks=20, export="dmfb_20x20_10d_fov9_vdn")
+SWEEP_10D_JAX = 0.935
 # phase 7: MEDA and QMIX.  The MEDA env on the card against the CPU at
 # MEDA_CMP_B chips (rewards: float32 sums of the same terms, one order);
 # step times at MEDA_TIMED_B; the JAX package's MEDA and QMIX policies held
@@ -233,6 +307,19 @@ MEDA_VDN = "meda_30x60_4d_fov19_vdn"
 MEDA_TRAINED = [
     # (name, export, CLI, recorded success)
     ("meda_vdn_30x60_4d", MEDA_VDN, ["meda", "--drop_num=4"], 0.96),
+    ("meda_vdn_30x60_2d", "meda_30x60_2d_fov19_vdn",
+     ["meda", "--drop_num=2"], 1.00),
+    ("meda_vdn_30x60_3d", "meda_30x60_3d_fov19_vdn",
+     ["meda", "--drop_num=3"], 1.00),
+    # the 4-droplet seed-12 policy zero-shot on larger boards
+    # (RESULTS.md:419-420)
+    ("meda_vdn_45x90_4d", "meda_30x60_4d_4m_s12",
+     ["meda", "--drop_num=4", "--width=45", "--length=90"], 1.00),
+    ("meda_vdn_60x120_4d", "meda_30x60_4d_4m_s12",
+     ["meda", "--drop_num=4", "--width=60", "--length=120"], 0.94),
+    # JAX's largest configuration: 80x80 (T = 160), 10 droplets
+    ("meda_vdn_80x80_10d", "meda_80x80_10d_fov19_vdn",
+     ["meda", "--drop_num=10"], 0.94),
     ("meda_qmix_30x60_3d", "meda_30x60_3d_fov19_qmix",
      ["meda", "--drop_num=3", "--alg=qmix"], 0.98),
     # JAX's MEDA 3-droplet recipe trained from scratch by the port on the
@@ -326,6 +413,21 @@ WIDE_TRAIN_ARGV = ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=160",
                    f"--n_parallel_envs={WIDE_TRAIN_B}", "--buffer_size=32",
                    "--batch_size=8", f"--exact_steps={2 * WIDE_TRAIN_B * 640}",
                    f"--evaluate_task={WIDE_TRAIN_B}", ONE_DEVICE]
+# phase 13: JAX's largest configuration at the CLI's widths: MEDA 80x80
+# (T = 160), 10 droplets, a ring of 10,000 episodes (16,660 MiB of
+# observations), batch 128, 2 chips a rollout; without --remat, then with
+# it (JAX trained it only with --remat and a 2,500-episode ring, on 16 GB).
+# 960 env steps are 3 cycles when every episode runs to T.  The update with
+# --remat against the one without on the card, one minibatch: the loss
+# within LOSS_RTOL, the gradients within REMAT_GRAD_ATOL times their global
+# norm (the learner tests' tolerance, tests/torch_learn_util.py)
+MEDA_80X80_TRAIN = [
+    ("meda_vdn_80x80_10d", ["meda", "--drop_num=10"], 960,
+     (32, 128, 128, 10000, 2, 2, None)),
+    ("meda_vdn_80x80_10d_remat", ["meda", "--drop_num=10", "--remat"], 960,
+     (32, 128, 128, 10000, 2, 2, None)),
+]
+REMAT_GRAD_ATOL = 1e-6
 # phase 12: learning from scratch.  DMFB 10x10-2d, fov 9, VDN, the lr-decay
 # + EMA recipe at the CLI's widths (the 2-droplet hyperparameters: 32 conv
 # channels, GRU 128, batch 128, replay 5000; B = 64 chips a rollout, 13
@@ -508,16 +610,24 @@ def compare_kernel(tdmfb, dmfb_step, params, batch, generator,
     return worst
 
 
-def greedy_card_vs_cpu(env, net, hidden, chips, seed) -> int:
+def greedy_card_vs_cpu(env, net, hidden, chips, seed, worn=False) -> int:
     """The same greedy rollout of ``net`` on the card (the kernels) and on
     the CPU (the plain step), from the same ``chips`` fresh tasks and move
-    draws; returns the episodes whose observations and success are
-    identical.  Leaves ``net`` on the CPU."""
+    draws (with ``worn``, the second half of the chips on electrodes of
+    health uniform in [0.5, 1), as a degradation sweep wears them); returns
+    the episodes whose observations and success are identical.  Leaves
+    ``net`` on the CPU."""
     from marl_dmfb_tpu_torch.rollout import RolloutNoise, make_rollout
 
     T = env.episode_limit
     gc = torch.Generator(device="cuda").manual_seed(seed)
     reset = env.reset(env.init(chips, gc, "cuda"), gc)
+    if worn:
+        health = reset.health.clone()
+        health[chips // 2:] = torch.rand(health[chips // 2:].shape,
+                                         generator=gc, device="cuda") \
+            * 0.5 + 0.5
+        reset = reset._replace(health=health)
     uniforms = torch.rand((T, chips, env.n_agents), generator=gc,
                           device="cuda")
     res = {}
@@ -533,37 +643,61 @@ def greedy_card_vs_cpu(env, net, hidden, chips, seed) -> int:
     return int(same.sum())
 
 
-def compare_learner(make_learner, state, batch, updates=None):
+def compare_learner(make_learner, state, batch, updates=None, make_ref=None):
     """``updates`` (default ``LEARN_UPDATES``) updates of one learner state
-    on one minibatch, on the card and on the CPU; ``make_learner(device)``
-    builds a learner there.  Returns the largest loss difference relative
-    to the CPU's, the largest param difference (the agent's and a mixer's)
-    outside noise gradients and in all, and the card's learner."""
-    cpu, card = make_learner("cpu"), make_learner("cuda")
-    cpu.load_state(state)
+    on one minibatch, on the card and on a reference: ``make_learner(
+    device)`` builds a learner there, the reference on the CPU, or
+    ``make_ref("cuda")`` where given (another learner on the card).
+    Returns the largest loss difference relative to the reference's, the
+    largest param difference (the agent's and a mixer's) outside the
+    reference's noise gradients and in all, and the card's learner."""
+    if make_ref is None:
+        ref = make_learner("cpu")
+        ref_batch = {k: v.cpu() for k, v in batch.items()}
+    else:
+        ref, ref_batch = make_ref("cuda"), batch
+    card = make_learner("cuda")
+    ref.load_state(state)
     card.load_state(state)
-    cpu_batch = {k: v.cpu() for k, v in batch.items()}
-    noisy = {k: torch.zeros(v.shape, dtype=torch.bool)
-             for k, v in cpu.all_params.items()}
+    noisy = {k: torch.zeros(v.shape, dtype=torch.bool, device=v.device)
+             for k, v in ref.all_params.items()}
     loss_rel = 0.0
     for _ in range(updates or LEARN_UPDATES):
-        _, grads = cpu.loss_and_grads(cpu_batch)
+        _, grads = ref.loss_and_grads(ref_batch)
         norm = torch.sqrt(sum((g.double() ** 2).sum()
                               for g in grads.values()))
         for k, g in grads.items():
             noisy[k] |= g.abs() <= NOISE * norm
-        want = float(cpu.update(cpu_batch))
+        want = float(ref.update(ref_batch))
         got = float(card.update(batch))
         if not math.isfinite(got):
             raise AssertionError(f"the card's loss is {got}")
         loss_rel = max(loss_rel, abs(got - want) / abs(want))
     clean = worst = 0.0
-    for k, p in cpu.all_params.items():
-        diff = (card.all_params[k].detach().cpu() - p.detach()).abs()
+    for k, p in ref.all_params.items():
+        diff = (card.all_params[k].detach().cpu() - p.detach().cpu()).abs()
+        noisy[k] = noisy[k].cpu()
         kept = diff[~noisy[k]]
         clean = max(clean, float(kept.max()) if kept.numel() else 0.0)
         worst = max(worst, float(diff.max()))
     return loss_rel, clean, worst, card
+
+
+def time_updates(learner, batch) -> tuple:
+    """ms of an update of ``learner`` on ``batch`` (CUDA events over
+    ``TIMED_UPDATES`` updates, after one), and the MiB that an update
+    allocates at its peak."""
+    learner.update(batch)
+    torch.cuda.synchronize()
+    base = run_memory_start()
+    start_ev = torch.cuda.Event(enable_timing=True)
+    end_ev = torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    for _ in range(TIMED_UPDATES):
+        learner.update(batch)
+    end_ev.record()
+    end_ev.synchronize()
+    return start_ev.elapsed_time(end_ev) / TIMED_UPDATES, run_peak_mib(base)
 
 
 def _agent_rows(rows, generator):
@@ -615,49 +749,76 @@ def card_vs_cpu_bf16(net_cls, params, generator):
 def trained_policies(smi) -> dict:
     """Phase 6: the JAX package's trained policies on the card (module
     docstring); raises on any failed check, returns the numbers."""
-    from marl_dmfb_tpu_torch import eva_degrade, evaluate
+    from marl_dmfb_tpu_torch import evaluate
     from marl_dmfb_tpu_torch.checkpoint import load
     from marl_dmfb_tpu_torch.config import (get_evaluate_args,
                                             make_env_from_args)
     from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
     from marl_dmfb_tpu_torch.models.networks import CRNNAgent
     from marl_dmfb_tpu_torch.ops import dmfb_step
-    from marl_dmfb_tpu_torch.trainer import restore_net_config
+    from marl_dmfb_tpu_torch.trainer import Trainer, restore_net_config
 
     t6 = time.perf_counter()
     out = {"policies": {}, "phase_s": {}}
     launches_no_obs = 0
     for name, export, board, flags, recorded in TRAINED:
         t0 = time.perf_counter()
+        tasks = eval_tasks(recorded)
         argv = (["dmfb", "--drop_num=4", "--fov=9", f"--chip_size={board}",
-                 "--evaluate_task=100", "--load_model_name=0_final",
+                 f"--evaluate_task={tasks}", "--load_model_name=0_final",
                  f"--data_dir={os.path.join(WEIGHTS, export)}"] + flags)
         dmfb_step.launches = dmfb_step.launches_no_obs = 0
+        dmfb_step.launches_wide = 0
         m = evaluate.main(argv)
         launches, no_obs = dmfb_step.launches, dmfb_step.launches_no_obs
         args = get_evaluate_args(argv)
         restore_net_config(args, "final")
-        T = make_env_from_args(args).episode_limit
+        env = make_env_from_args(args)
+        T = env.episode_limit
         v01 = args.version == "0.1"
-        if launches != T or no_obs != (T if v01 else 0):
+        if launches != T or no_obs != (T if v01 else 0) \
+                or dmfb_step.launches_wide:
             raise AssertionError(
                 f"{name}: {launches} kernel launches ({no_obs} without "
                 f"observations), expected T = {T}"
-                + (" without observations" if v01 else ""))
+                + (" without observations" if v01 else "")
+                + f"; the wide kernel {dmfb_step.launches_wide}")
         launches_no_obs += no_obs
+        # the tile kernel's instantiation (csrc/dmfb_step.cu:698-704)
+        n = args.drop_num
+        inst = 4 if n <= 4 else 8 if n <= 8 else 16
         floor = recorded - SUCCESS_SLACK
         seconds = time.perf_counter() - t0
         log(f"phase 6: [{smi}] {name} ({export}, {board}x{board}"
-            f"{', ' + ' '.join(flags) if flags else ''}): success "
-            f"{m['success_rate']:.2f} (recorded {recorded:.2f}, floor "
-            f"{floor:.2f}), steps {m['steps']:.2f}, reward "
+            f"{', ' + ' '.join(flags) if flags else ''}, {tasks} tasks): "
+            f"success {m['success_rate']:.3f} (recorded {recorded:.3f}, "
+            f"floor {floor:.3f}), steps {m['steps']:.2f}, reward "
             f"{m['reward']:.4f}, kernel launches {launches} "
-            f"({no_obs} without observations), {seconds:.2f} s")
+            f"({no_obs} without observations), tile kernel instantiation "
+            f"{inst} droplets, {env.params.n_blocks} blocks, "
+            f"{seconds:.2f} s")
         if not m["success_rate"] >= floor - 1e-9:
             raise AssertionError(f"{name}: success {m['success_rate']} "
                                  f"below {floor}")
         out["policies"][name] = dict(m, recorded=recorded, floor=floor,
-                                     launches=launches, seconds=seconds)
+                                     tasks=tasks, launches=launches,
+                                     instantiation=inst,
+                                     blocks=env.params.n_blocks,
+                                     seconds=seconds)
+        if name in GREEDY_CMP:
+            t0 = time.perf_counter()
+            policy = Trainer(env, args, eval_only=True)
+            policy.load_model("final", params_only=True)
+            same = greedy_card_vs_cpu(env, policy.net.eval(),
+                                      args.rnn_hidden_dim, GREEDY_B, 61,
+                                      worn=True)
+            log(f"phase 6: greedy rollout of {name}, {GREEDY_B} chips (half "
+                f"worn), card vs CPU: {same}/{GREEDY_B} episodes identical, "
+                f"{time.perf_counter() - t0:.2f} s")
+            if same != GREEDY_B:
+                raise AssertionError(f"the card's rollout of {name} departs "
+                                     f"from the CPU's")
+            out["policies"][name]["greedy_card_vs_cpu"] = same
     out["launches_no_obs"] = launches_no_obs
 
     # the no-observation mode (a v0.1 step's transition) against its plain
@@ -708,24 +869,57 @@ def trained_policies(smi) -> dict:
     out["bf16_forward"] = bf16
     out["phase_s"]["bf16"] = time.perf_counter() - t0
 
-    # the degradation sweep at 50x50 with the 10x10-4d policy
+    # the degradation sweeps at 50x50: the 10x10-4d policy, and the
+    # 10-droplet policy held to JAX's first epochs of 50by50-10d0b
     t0 = time.perf_counter()
-    data_dir = os.path.join(ROOT, "build", "chip_smoke_sweep")
+    out["sweep"] = dmfb_sweep(smi, "dmfb_10x10_4d_fov9_vdn", 4, SWEEP,
+                              "chip_smoke_sweep")
+    out["phase_s"]["sweep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sweep = dmfb_sweep(smi, SWEEP_10D["export"], 10, SWEEP_10D,
+                       "chip_smoke_sweep_10d")
+    mean = float(np.mean(sweep["success_per_epoch"]))
+    floor = SWEEP_10D_JAX - SUCCESS_SLACK
+    log(f"phase 6: [{smi}] 10-droplet sweep: mean success {mean:.3f} (JAX "
+        f"{SWEEP_10D_JAX:.3f} over its first {SWEEP_10D['epochs']} epochs, "
+        f"floor {floor:.3f})")
+    if not mean >= floor - 1e-9:
+        raise AssertionError(f"the 10-droplet sweep's success {mean} is "
+                             f"below {floor}")
+    out["sweep_10d"] = dict(sweep, mean=mean, jax=SWEEP_10D_JAX, floor=floor)
+    out["phase_s"]["sweep_10d"] = time.perf_counter() - t0
+    out["phase_s"]["total"] = time.perf_counter() - t6
+    log(f"phase 6: {out['phase_s']['total']:.2f} s")
+    return out
+
+
+def dmfb_sweep(smi, export, drop_num, sweep, run) -> dict:
+    """``eva_degrade`` of the committed export ``export`` with ``drop_num``
+    droplets on a ``sweep['board']`` board, ``sweep['epochs']`` epochs x
+    ``sweep['tasks']`` tasks, under ``build/<run>``: the kernel launched T
+    times an episode, wear that never goes back; returns the numbers."""
+    from marl_dmfb_tpu_torch import eva_degrade
+    from marl_dmfb_tpu_torch.ops import dmfb_step
+
+    t0 = time.perf_counter()
+    data_dir = os.path.join(ROOT, "build", run)
     shutil.rmtree(data_dir, ignore_errors=True)
     model = os.path.join(data_dir, "model", "vdn", "fov9")
     os.makedirs(model)
-    shutil.copy(os.path.join(POLICY_4D, "model", "vdn", "fov9",
+    shutil.copy(os.path.join(WEIGHTS, export, "model", "vdn", "fov9",
                              "0_final_state.npz"), model)
-    dmfb_step.launches = 0
+    dmfb_step.launches = dmfb_step.launches_wide = 0
     res = eva_degrade.main(
-        ["dmfb", "--drop_num=4", "--fov=9", f"--chip_size={SWEEP['board']}",
-         f"--evaluate_task={SWEEP['tasks']}",
-         f"--evaluate_epoch={SWEEP['epochs']}", f"--data_dir={data_dir}"])
-    sweep_launches = dmfb_step.launches
-    T = 4 * SWEEP["board"]
-    if sweep_launches != SWEEP["epochs"] * SWEEP["tasks"] * T:
-        raise AssertionError(f"the sweep launched the kernel "
-                             f"{sweep_launches} times")
+        ["dmfb", f"--drop_num={drop_num}", "--fov=9",
+         f"--chip_size={sweep['board']}", f"--evaluate_task={sweep['tasks']}",
+         f"--evaluate_epoch={sweep['epochs']}", f"--data_dir={data_dir}"])
+    launches = dmfb_step.launches
+    T = 4 * sweep["board"]
+    if launches != sweep["epochs"] * sweep["tasks"] * T \
+            or dmfb_step.launches_wide:
+        raise AssertionError(f"the sweep launched the tile kernel {launches} "
+                             f"times, the wide kernel "
+                             f"{dmfb_step.launches_wide}")
     health, usage = res["health"], res["usage"]
     # health never rises; usage never falls, except on a cell that just
     # wore out (its counter restarts as its health drops)
@@ -735,17 +929,43 @@ def trained_policies(smi) -> dict:
         raise AssertionError("the sweep's wear went backwards")
     per_epoch = res["success"].mean(axis=0).tolist()
     seconds = time.perf_counter() - t0
-    log(f"phase 6: [{smi}] degradation sweep, {SWEEP['board']}x"
-        f"{SWEEP['board']}, 5 chips, {SWEEP['epochs']} epochs x "
-        f"{SWEEP['tasks']} tasks: success per epoch {per_epoch}, steps per "
-        f"epoch {res['steps'].mean(axis=0).tolist()}, cells worn "
+    log(f"phase 6: [{smi}] degradation sweep of {export}, {drop_num} "
+        f"droplets, {sweep['board']}x{sweep['board']}, 5 chips, "
+        f"{sweep['epochs']} epochs x {sweep['tasks']} tasks: success per "
+        f"epoch {per_epoch}, steps per epoch "
+        f"{res['steps'].mean(axis=0).tolist()}, cells worn "
         f"{int(worn.sum())}, usage total {float(usage[:, -1].sum())}, kernel "
-        f"launches {sweep_launches} at B = 5, {seconds:.2f} s")
-    out["sweep"] = dict(success_per_epoch=per_epoch,
-                        launches=sweep_launches, seconds=seconds)
-    out["phase_s"]["total"] = time.perf_counter() - t6
-    log(f"phase 6: {out['phase_s']['total']:.2f} s")
-    return out
+        f"launches {launches} at B = 5, {seconds:.2f} s")
+    return dict(success_per_epoch=per_epoch, launches=launches,
+                seconds=seconds)
+
+
+def remat_vs_plain(learner, batch, smi) -> dict:
+    """The loss and gradients of ``learner``'s state on ``batch`` under
+    ``--remat`` against those without, both on the card; raises unless the
+    loss is within ``LOSS_RTOL`` and every gradient within
+    ``REMAT_GRAD_ATOL`` times the global norm."""
+    from marl_dmfb_tpu_torch.algos.qlearn import QLearner
+    from marl_dmfb_tpu_torch.models.networks import build_agent_net
+
+    a = dataclasses.replace(learner.args, remat=True)
+    remat = QLearner(a, build_agent_net(a).cuda())
+    remat.load_state(learner.state())
+    loss, grads = learner.loss_and_grads(batch)
+    grads = {k: g.detach().clone() for k, g in grads.items()}
+    r_loss, r_grads = remat.loss_and_grads(batch)
+    loss_rel = abs(r_loss.item() - loss.item()) / abs(loss.item())
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                for g in grads.values())))
+    grad_diff = max(float((r_grads[k] - g).abs().max())
+                    for k, g in grads.items())
+    log(f"phase 13: [{smi}] MEDA 80x80-10d update on one minibatch of "
+        f"{len(batch['u'])} episodes, --remat vs without on the card: loss "
+        f"rel diff {loss_rel:.3g} (<= {LOSS_RTOL}), gradients max diff "
+        f"{grad_diff:.3g} (<= {REMAT_GRAD_ATOL} x the norm {norm:.4g})")
+    if not (loss_rel <= LOSS_RTOL and grad_diff <= REMAT_GRAD_ATOL * norm):
+        raise AssertionError("--remat departs from the update without it")
+    return dict(loss_rel=loss_rel, grad_diff=grad_diff, grad_norm=norm)
 
 
 def _toward(center, dest, rng_u, rand_a):
@@ -849,10 +1069,89 @@ def meda_step_times(tmeda, smi) -> dict:
     return out
 
 
+def train_runs(smi, runs, phase, check=None) -> dict:
+    """Each ``(name, CLI, env steps, widths)`` of ``runs`` through the train
+    entry point (evaluations at the start and the end, 100 tasks each):
+    the widths it trained at, at least 3 cycles, the DMFB kernel launched T
+    times a rollout (never for MEDA), every loss finite; then an update
+    (``time_updates``, with its peak memory) and ``TIMED_CYCLES`` cycles
+    timed.  ``check(name, learner, batch)``, where given, runs on each
+    run's learner and a minibatch of its ring before the timing.  Returns
+    the numbers by name."""
+    from marl_dmfb_tpu_torch import train
+    from marl_dmfb_tpu_torch.ops import dmfb_step
+    from marl_dmfb_tpu_torch.replay import sample
+
+    out = {}
+    for name, argv, steps, width in runs:
+        data_dir = os.path.join(ROOT, "build", f"chip_smoke_{name}")
+        shutil.rmtree(data_dir, ignore_errors=True)
+        argv = argv + [f"--exact_steps={steps}", "--evaluate_task=100",
+                       "--evaluate_cycle=1000000", f"--data_dir={data_dir}",
+                       ONE_DEVICE]
+        torch.cuda.synchronize()
+        base = run_memory_start()
+        dmfb_step.launches = 0
+        t1 = time.perf_counter()
+        trainer = train.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        launches = dmfb_step.launches
+        peak = run_peak_mib(base)
+        a = trainer.args
+        got = (a.hyper_hidden_dim, a.rnn_hidden_dim, a.batch_size,
+               a.buffer_size, trainer.B, trainer.updates_per_rollout,
+               a.state_shape if trainer.mixer is not None else None)
+        if got != width:
+            raise AssertionError(f"{name} trained at (conv, hidden, batch, "
+                                 f"replay, B, updates a cycle, mixer state) "
+                                 f"= {got}, expected {width}")
+        cycles, evals = trainer.n_cycles, len(trainer.success_rate)
+        T = trainer.env.episode_limit
+        want = T * (cycles + evals) if a.name == "dmfb" else 0
+        if launches != want or evals != 2 or cycles < 3:
+            raise AssertionError(f"{name}: {launches} kernel launches in "
+                                 f"{cycles} cycles and {evals} evaluations")
+        losses = torch.stack(trainer.losses).cpu()
+        if not bool(losses.isfinite().all()):
+            raise AssertionError(f"{name}: losses {losses.tolist()}")
+        learner = trainer.learner
+        updates = learner.train_step
+        batch = sample(trainer.replay, a.batch_size, trainer.generator)
+        if check is not None:
+            check(name, learner, batch)
+        update_ms, update_peak = time_updates(learner, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(TIMED_CYCLES):
+            trainer.train_cycle()
+        torch.cuda.synchronize()
+        cycle_ms = (time.perf_counter() - t1) / TIMED_CYCLES * 1e3
+        replay_mib = sum(v.numel() * v.element_size()
+                         for v in trainer.replay.data.values()) / 2 ** 20
+        out[name] = dict(
+            cycles=cycles, updates=updates, seconds=seconds,
+            launches=launches, update_ms=update_ms, cycle_ms=cycle_ms,
+            peak_mib=peak, update_peak_mib=update_peak,
+            replay_mib=replay_mib, remat=bool(a.remat),
+            losses=losses.tolist(), success=trainer.success_rate)
+        log(f"{phase}: [{smi}] train {' '.join(argv[:4])} ({a.width}x"
+            f"{a.length}, T = {T}): {cycles} cycles of B={trainer.B} "
+            f"({updates} updates at batch {a.batch_size}) in {seconds:.2f} "
+            f"s, kernel launches {launches}, every loss finite; update "
+            f"{update_ms:.2f} ms (peak {update_peak:.1f} MiB), cycle "
+            f"{cycle_ms:.1f} ms; replay {replay_mib:.1f} MiB, peak memory "
+            f"of the run {peak:.1f} MiB; success {trainer.success_rate}")
+        # the ring (16,684 MiB at 80x80-10d) goes before the next run's
+        del trainer, learner, batch
+        torch.cuda.empty_cache()
+    return out
+
+
 def meda_qmix(smi) -> dict:
     """Phase 7: MEDA and QMIX on the card (module docstring); raises on any
     failed check, returns the numbers."""
-    from marl_dmfb_tpu_torch import eva_degrade, evaluate, train
+    from marl_dmfb_tpu_torch import eva_degrade, evaluate
     from marl_dmfb_tpu_torch.algos.qlearn import QLearner
     from marl_dmfb_tpu_torch.config import (get_evaluate_args,
                                             get_train_args,
@@ -910,7 +1209,9 @@ def meda_qmix(smi) -> dict:
     out["policies"] = {}
     launches_eval = 0
     for name, export, argv, recorded in MEDA_TRAINED:
-        argv = argv + ["--evaluate_task=100",
+        t1 = time.perf_counter()
+        tasks = eval_tasks(recorded)
+        argv = argv + [f"--evaluate_task={tasks}",
                        f"--data_dir={os.path.join(WEIGHTS, export)}"]
         dmfb_step.launches = dmfb_step.launches_no_obs = 0
         m = evaluate.main(argv)
@@ -923,87 +1224,25 @@ def meda_qmix(smi) -> dict:
                                  f"expected {want}")
         launches_eval += launches
         floor = recorded - SUCCESS_SLACK
+        seconds = time.perf_counter() - t1
         log(f"phase 7: [{smi}] {name} ({export}, {a.width}x{a.length}, "
-            f"{a.alg}): success {m['success_rate']:.2f} (recorded "
-            f"{recorded:.2f}, floor {floor:.2f}), steps {m['steps']:.2f}, "
-            f"reward {m['reward']:.4f}, kernel launches {launches}")
+            f"{a.alg}, {tasks} tasks, T = {T}): success "
+            f"{m['success_rate']:.3f} (recorded {recorded:.3f}, floor "
+            f"{floor:.3f}), steps {m['steps']:.2f}, reward "
+            f"{m['reward']:.4f}, kernel launches {launches}, "
+            f"{seconds:.2f} s")
         if not m["success_rate"] >= floor - 1e-9:
             raise AssertionError(f"{name}: success {m['success_rate']} "
                                  f"below {floor}")
         out["policies"][name] = dict(m, recorded=recorded, floor=floor,
-                                     launches=launches)
+                                     tasks=tasks, launches=launches,
+                                     seconds=seconds)
     out["launches_qmix_eval"] = launches_eval
     out["phase_s"]["policies"] = time.perf_counter() - t0
 
     # 3. training at full width, cut in cycles
     t0 = time.perf_counter()
-    out["train"] = {}
-    trainer = learner = batch = None
-    for name, argv, steps, width in MEDA_QMIX_TRAIN:
-        data_dir = os.path.join(ROOT, "build", f"chip_smoke_{name}")
-        shutil.rmtree(data_dir, ignore_errors=True)
-        argv = argv + [f"--exact_steps={steps}", "--evaluate_task=100",
-                       "--evaluate_cycle=1000000", f"--data_dir={data_dir}",
-                       ONE_DEVICE]
-        trainer = learner = batch = None     # the last run's replay
-        torch.cuda.synchronize()
-        base = run_memory_start()
-        dmfb_step.launches = 0
-        t1 = time.perf_counter()
-        trainer = train.main(argv)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t1
-        launches = dmfb_step.launches
-        peak = run_peak_mib(base)
-        a = trainer.args
-        got = (a.hyper_hidden_dim, a.rnn_hidden_dim, a.batch_size,
-               a.buffer_size, trainer.B, trainer.updates_per_rollout,
-               a.state_shape if trainer.mixer is not None else None)
-        if got != width:
-            raise AssertionError(f"{name} trained at (conv, hidden, batch, "
-                                 f"replay, B, updates a cycle, mixer state) "
-                                 f"= {got}, expected {width}")
-        cycles, evals = trainer.n_cycles, len(trainer.success_rate)
-        T = trainer.env.episode_limit
-        want = T * (cycles + evals) if a.name == "dmfb" else 0
-        if launches != want or evals != 2 or cycles < 3:
-            raise AssertionError(f"{name}: {launches} kernel launches in "
-                                 f"{cycles} cycles and {evals} evaluations")
-        losses = torch.stack(trainer.losses).cpu()
-        if not bool(losses.isfinite().all()):
-            raise AssertionError(f"{name}: losses {losses.tolist()}")
-        learner = trainer.learner
-        updates = learner.train_step
-        batch = sample(trainer.replay, a.batch_size, trainer.generator)
-        learner.update(batch)
-        start_ev = torch.cuda.Event(enable_timing=True)
-        end_ev = torch.cuda.Event(enable_timing=True)
-        start_ev.record()
-        for _ in range(TIMED_UPDATES):
-            learner.update(batch)
-        end_ev.record()
-        end_ev.synchronize()
-        update_ms = start_ev.elapsed_time(end_ev) / TIMED_UPDATES
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for _ in range(TIMED_CYCLES):
-            trainer.train_cycle()
-        torch.cuda.synchronize()
-        cycle_ms = (time.perf_counter() - t1) / TIMED_CYCLES * 1e3
-        replay_mib = sum(v.numel() * v.element_size()
-                         for v in trainer.replay.data.values()) / 2 ** 20
-        out["train"][name] = dict(
-            cycles=cycles, updates=updates, seconds=seconds,
-            launches=launches, update_ms=update_ms, cycle_ms=cycle_ms,
-            peak_mib=peak, replay_mib=replay_mib,
-            losses=losses.tolist(), success=trainer.success_rate)
-        log(f"phase 7: [{smi}] train {' '.join(argv[:4])}: {cycles} cycles "
-            f"of B={trainer.B} ({updates} updates at batch "
-            f"{a.batch_size}) in {seconds:.2f} s, kernel launches "
-            f"{launches}; update {update_ms:.2f} ms, cycle {cycle_ms:.1f} ms; "
-            f"replay {replay_mib:.1f} MiB, peak memory {peak:.1f} MiB; "
-            f"success {trainer.success_rate}")
-    trainer = learner = batch = None
+    out["train"] = train_runs(smi, MEDA_QMIX_TRAIN, "phase 7")
     out["launches_qmix_train"] = out["train"]["dmfb_qmix_20x20"]["launches"]
     out["phase_s"]["train"] = time.perf_counter() - t0
 
@@ -2012,6 +2251,23 @@ def learning(smi, seed=None) -> dict:
     return out
 
 
+def largest_meda(smi) -> dict:
+    """Phase 13: MEDA 80x80-10d trained at the CLI's widths without and
+    with ``--remat``, and the two updates held on one minibatch (module
+    docstring); raises on any failed check, returns the numbers."""
+    t13 = time.perf_counter()
+    out = {}
+
+    def check(name, learner, batch):
+        if not learner.args.remat:
+            out["remat_vs_plain"] = remat_vs_plain(learner, batch, smi)
+
+    out["train"] = train_runs(smi, MEDA_80X80_TRAIN, "phase 13", check)
+    out["seconds"] = time.perf_counter() - t13
+    log(f"phase 13: {out['seconds']:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2079,14 +2335,16 @@ def main() -> int:
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(2024)
     max_err = 0.0
-    for width, n, blocks, batch in ((10, 4, 0, KERNEL_B), (20, 4, 2, 1024),
-                                    (20, 10, 0, 1024)):
+    for width, n, blocks, batch in KERNEL_CMP:
         p = tdmfb.DMFBParams(width=width, length=width, n_droplets=n,
                              n_blocks=blocks, fov=9)
-        err = compare_kernel(tdmfb, dmfb_step, p, batch, g)
-        max_err = max(max_err, err)
-        log(f"phase 2: {width}x{width}, {n} droplets, {blocks} blocks, "
-            f"B={batch}: kernel == plain over 3 steps (max |diff| {err:.3g})")
+        for observe in (True, False):
+            err = compare_kernel(tdmfb, dmfb_step, p, batch, g, observe,
+                                 kernel="tile")
+            max_err = max(max_err, err)
+            log(f"phase 2: {width}x{width}, {n} droplets, {blocks} blocks, "
+                f"B={batch}, observe={observe}: kernel == plain over 3 "
+                f"steps (max |diff| {err:.3g})")
     log(f"phase 2: {time.perf_counter() - t0:.2f} s")
 
     # --- 3: the evaluate entry point, through the kernel ---
@@ -2264,16 +2522,38 @@ def main() -> int:
             and worst <= adam_bound):
         raise AssertionError("the learner on the card departs from the CPU")
 
+    # --remat and --fused_streams on the card against the plain learner on
+    # the card, from the same state and minibatch
+    t1 = time.perf_counter()
+    variants = {}
+    for flag in ("remat", "fused_streams"):
+        vargs = dataclasses.replace(targs, **{flag: True})
+        v_rel, v_clean, v_worst, v_card = compare_learner(
+            lambda dev, a=vargs: QLearner(a, build_agent_net(a).to(dev)),
+            learner.state(), batch,
+            make_ref=lambda dev: QLearner(targs,
+                                          build_agent_net(targs).to(dev)))
+        v_ms, v_peak = time_updates(v_card, batch)
+        variants[flag] = dict(loss_rel=v_rel, param_diff=v_clean,
+                              param_diff_all=v_worst, update_ms=v_ms,
+                              peak_mib=v_peak)
+        log(f"phase 5: [{smi}] --{flag} vs the plain learner on the card over "
+            f"{LEARN_UPDATES} updates at batch {targs.batch_size}: loss rel "
+            f"diff {v_rel:.3g} (<= {LOSS_RTOL}), params max diff "
+            f"{v_clean:.3g} outside noise gradients (<= {PARAM_ATOL}), "
+            f"{v_worst:.3g} in all (<= {adam_bound:.3g}); update "
+            f"{v_ms:.2f} ms, peak memory of an update {v_peak:.1f} MiB")
+        if not (v_rel <= LOSS_RTOL and v_clean <= PARAM_ATOL
+                and v_worst <= adam_bound):
+            raise AssertionError(f"--{flag} departs from the plain learner")
+        del v_card
+    log(f"phase 5: --remat and --fused_streams on the card: "
+        f"{time.perf_counter() - t1:.2f} s")
+
     # times: an update (CUDA events), a cycle and its env steps (host clock)
-    card.update(batch)
-    start_ev = torch.cuda.Event(enable_timing=True)
-    end_ev = torch.cuda.Event(enable_timing=True)
-    start_ev.record()
-    for _ in range(TIMED_UPDATES):
-        card.update(batch)
-    end_ev.record()
-    end_ev.synchronize()
-    update_ms = start_ev.elapsed_time(end_ev) / TIMED_UPDATES
+    update_ms, update_peak = time_updates(card, batch)
+    log(f"phase 5: [{smi}] plain update {update_ms:.2f} ms, peak memory of "
+        f"an update {update_peak:.1f} MiB")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     steps = sum(trainer.train_cycle() for _ in range(TIMED_CYCLES))
@@ -2289,11 +2569,15 @@ def main() -> int:
 
     phase6 = trained_policies(smi)
     phase7 = meda_qmix(smi)
-    phase8 = seed_farm(smi)
+    # phase 8 runs last: after its torch.profiler trace every launch of the
+    # process is slower (tools/time_after_profiler.py times phase 12 alone
+    # and after one trace), and the phases after it are timed
     phase9 = data_parallel(smi)
     phase10 = bench_entries(smi, T)
     phase11 = wide_kernel(smi)
     phase12 = learning(smi)
+    phase13 = largest_meda(smi)
+    phase8 = seed_farm(smi)
     log(f"total: {time.perf_counter() - t_all:.2f} s")
 
     log(smi)
@@ -2318,6 +2602,10 @@ def main() -> int:
         "share_of_bound_b100": timed[EVAL_B]["share"],
         "registers": main4[True][0]["registers"],
         "launches_no_obs": phase6["launches_no_obs"],
+        "launches_policies": sum(v["launches"] for v in
+                                 phase6["policies"].values()),
+        "launches_sweeps": (phase6["sweep"]["launches"]
+                            + phase6["sweep_10d"]["launches"]),
         "no_obs_max_abs_err": phase6["no_obs"]["max_abs_err"],
         "no_obs_ms": phase6["no_obs"][KERNEL_B]["ms"],
         "no_obs_plain_ms": phase6["no_obs"][KERNEL_B]["plain_ms"],
@@ -2368,6 +2656,7 @@ def main() -> int:
         "env_steps_per_s": train_rate, "peak_mib": peak_train / 2 ** 20,
         "card_vs_cpu": {"loss_rel": loss_rel, "param_diff": clean,
                         "param_diff_all": worst},
+        "update_peak_mib": update_peak, "variants": variants,
         "device": smi}}))
     log(json.dumps({"trained": {
         k: v for k, v in phase6.items() if k != "no_obs"}, "device": smi}))
@@ -2379,6 +2668,7 @@ def main() -> int:
                              if k not in ("timed", "launches")},
                     "device": smi}))
     log(json.dumps({"learning": phase12, "device": smi}))
+    log(json.dumps({"meda_80x80_10d": phase13, "device": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

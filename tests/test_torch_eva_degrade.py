@@ -1,100 +1,50 @@
 """The PyTorch port's degradation sweep (``marl_dmfb_tpu_torch.eva_degrade``)
 against the JAX package's ``eva_degrade.py`` on the CPU.
 
-Torch generators cannot replay JAX keys, so the JAX sweep records each
-episode's chips and key, and the port replays them: its reset takes the
-tasks of JAX's reset of the same chips (its own wear maps stay its own),
-and its rollout takes JAX's draws (``replay_noise``).  Two epochs of two
-tasks at 10x10 with the ``dmfb_10x10_4d_fov9_vdn`` policy (the JAX
-package's Orbax checkpoint there, its committed export here), greedy and
-with ``--noise_eps=0.3``: the health and usage snapshots, the steps and the
-success are equal, the per-epoch mean rewards within ``REWARD_ATOL``."""
+Torch generators cannot replay JAX keys, so ``tools/degrade_replay_jax.py``
+records each episode's chips and key in the JAX sweep, and the port
+replays them: its reset takes the tasks of JAX's reset of the same chips
+(its own wear maps stay its own), and its rollout takes JAX's draws
+(``replay_noise``).  Two epochs of two tasks at 10x10 with the
+``dmfb_10x10_4d_fov9_vdn`` policy (the JAX package's Orbax checkpoint
+there, its committed export here), greedy and with ``--noise_eps=0.3``,
+and the DegreData row ``20by20-10d0b`` cut to two epochs of one task:
+every action of every episode, the health and usage snapshots, the steps
+and the success are equal, the per-epoch mean rewards within
+``REWARD_ATOL``."""
 
 import os
 
-import jax
 import numpy as np
 import pytest
 import torch
 
 import eva_degrade as jeva
-from marl_dmfb_tpu.envs import make_env as jmake_env
 from marl_dmfb_tpu_torch import config as tconfig
 from marl_dmfb_tpu_torch import eva_degrade as teva
-from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
-from marl_dmfb_tpu_torch.trainer import Trainer, restore_net_config
-from tests.torch_port_util import (WEIGHTS, committed_export, replay_noise,
-                                   to_torch_state)
+from tests.torch_port_util import committed_export
+from tools import degrade_replay_jax
+from tools.degrade_sweeps_torch import ROWS
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAME = "dmfb_10x10_4d_fov9_vdn"
+ROW = {r[0]: r for r in ROWS}["20by20-10d0b"]
 REWARD_ATOL = 1e-5   # means of sums of 40 float32 team rewards
 
 torch.set_num_threads(1)
 
 
-def _jax_sweep(tmp_path, monkeypatch, argv):
-    """Run the JAX package's sweep, recording each rollout's chips and key;
-    returns its arrays and the records."""
-    d = tmp_path / "model" / "vdn" / "fov9"
-    d.mkdir(parents=True)
-    os.symlink(os.path.join(ROOT, "artifacts", NAME), d / "0_final_state")
-    calls = []
-
-    class Recording(jeva.Trainer):
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            inner = self.rollout
-
-            def rollout(params, states, key, *rest, **kw):
-                calls.append((states, key))
-                return inner(params, states, key, *rest, **kw)
-
-            self.rollout = rollout
-
-    monkeypatch.setattr(jeva, "Trainer", Recording)
-    jeva.main(argv + [f"--data_dir={tmp_path}"])
-    args = jeva.get_evaluate_args(argv + [f"--data_dir={tmp_path}"])
-    path = jeva.degre_dir(args)
-    return {k: np.load(os.path.join(path, f"{k}.npy")) for k in
-            ("rewards", "steps", "success", "health", "usage")}, calls
-
-
-@pytest.mark.parametrize("noise_eps", [0.0, 0.3])
-def test_sweep_matches_jax(tmp_path, monkeypatch, noise_eps):
-    epochs, tasks = 2, 2
-    argv = ["dmfb", "--drop_num=4", "--fov=9", f"--evaluate_task={tasks}",
-            f"--evaluate_epoch={epochs}", f"--noise_eps={noise_eps}"]
-    want, calls = _jax_sweep(tmp_path / "jax", monkeypatch, argv)
-    assert len(calls) == epochs * tasks
-
-    args = tconfig.get_evaluate_args(
-        argv + ["--device=cpu", f"--data_dir={os.path.join(WEIGHTS, NAME)}"])
-    args.b_degrade, args.per_degrade = True, 1.0
-    env = tconfig.make_env_from_args(args)
-    jenv = jmake_env("dmfb", width=10, length=10, n_droplets=4, fov=9,
-                     b_degrade=True, per_degrade=1.0)
-    resets = [jax.jit(jax.vmap(jenv.reset))(s) for s, _ in calls]
-    T, N, A = env.episode_limit, env.n_agents, env.n_actions
-    noises = [replay_noise(k, r, T, teva.N_RUNS, N, A)
-              for (_, k), r in zip(calls, resets)]
-    episode = iter(range(len(calls)))
-
-    def reset(state, generator):
-        """JAX's next tasks on the port's own chips."""
-        task = to_torch_state(resets[next(episode)])
-        zeros = torch.zeros_like(state.step_count)
-        return tdmfb.update_health(state._replace(
-            pos=task.pos, start=task.start, goal=task.goal, dist=task.dist,
-            block_mask=task.block_mask, step_count=zeros,
-            cum_constraints=zeros.clone()))
-
-    restore_net_config(args, "final")
-    trainer = Trainer(env._replace(reset=reset), args, eval_only=True)
-    trainer.load_model("final", params_only=True)
-    got = teva.sweep(trainer, to_torch_state(calls[0][0]), epochs, tasks,
-                     noise_eps, None,
-                     noise=lambda e, t: noises[e * tasks + t])
+@pytest.mark.parametrize("cli, export, epochs, tasks", [
+    pytest.param(["dmfb", "--drop_num=4", "--fov=9"], NAME, 2, 2, id="0.0"),
+    pytest.param(["dmfb", "--drop_num=4", "--fov=9", "--noise_eps=0.3"],
+                 NAME, 2, 2, id="0.3"),
+    # the DegreData row 20by20-10d0b's policy and flags (the tile kernel's
+    # 16-droplet instantiation on the card), cut to 2 epochs of 1 task
+    pytest.param(ROW[2], ROW[1], 2, 1, id=ROW[0]),
+])
+def test_sweep_matches_jax(tmp_path, cli, export, epochs, tasks):
+    got, want, departure = degrade_replay_jax.replay(cli, export, epochs,
+                                                     tasks, str(tmp_path))
+    assert departure is None, departure
     for k in ("steps", "success", "health", "usage"):
         assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
@@ -141,3 +91,4 @@ def test_eva_degrade_raises_without_cuda_unless_asked():
         pytest.skip("this machine has a card: the default device works")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         teva.main(["dmfb", "--evaluate_task=1", "--evaluate_epoch=1"])
+

@@ -6,9 +6,10 @@ writes an Orbax checkpoint as a numpy-only ``.npz``, and the port reads it.
   fresh export of its artifact;
 * a params-only load takes the EMA where there is one, as JAX's
   ``Trainer.load_model`` does, and a full export resumes the learner state;
-* the flagship export, evaluated greedily on JAX's own task states and
-  draws at 20x20, gives JAX's per-episode steps and success exactly and its
-  per-episode rewards within ``REWARD_SUM_ATOL``.
+* the flagship export, the obstacle-blocks and the 10-droplet exports at
+  20x20 and the MEDA 80x80-10d export, evaluated greedily on JAX's own
+  task states and draws, give JAX's per-episode steps and success exactly
+  and its per-episode rewards within ``REWARD_SUM_ATOL``.
 """
 
 import functools
@@ -29,7 +30,8 @@ from marl_dmfb_tpu.trainer import Trainer as JTrainer
 from marl_dmfb_tpu.trainer import restore_net_config as jrestore_net_config
 from marl_dmfb_tpu_torch import checkpoint as tckpt
 from marl_dmfb_tpu_torch import config as tconfig
-from marl_dmfb_tpu_torch.envs import make_env as tmake_env
+from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
+from marl_dmfb_tpu_torch.envs import meda as tmeda
 from marl_dmfb_tpu_torch.models.convert import (from_flax_learner_state,
                                                 from_flax_params)
 from marl_dmfb_tpu_torch.rollout import make_rollout as tmake_rollout
@@ -48,6 +50,17 @@ EXPORTS = {
     "meda_30x60_4d_fov19_vdn": "meda_30x60_4d_fov19_vdn",
     "meda_30x60_3d_fov19_qmix": "meda_30x60_3d_fov19_qmix",
     "dmfb_20x20_4d_fov9_qmix": "dmfb_20x20_4d_fov9_qmix",
+    "dmfb_20x20_10d_fov9_vdn": "dmfb_20x20_10d_fov9_vdn",
+    "dmfb_20x20_5d_fov9_vdn": "dmfb_20x20_5d_fov9_vdn",
+    "dmfb_20x20_4d2b_8m": "dmfb_20x20_4d2b_8m/0_final_state",
+    "dmfb_30x30_4d2b_8m": "dmfb_30x30_4d2b_8m/0_final_state",
+    "dmfb_10x10_2d_fov9_vdn": "dmfb_10x10_2d_fov9_vdn",
+    "dmfb_10x10_3d_fov9_vdn": "dmfb_10x10_3d_fov9_vdn",
+    "dmfb_10x10_3d_fov9_vdn_v01": "dmfb_10x10_3d_fov9_vdn_v01",
+    "meda_30x60_2d_fov19_vdn": "meda_30x60_2d_fov19_vdn",
+    "meda_30x60_3d_fov19_vdn": "meda_30x60_3d_fov19_vdn",
+    "meda_30x60_4d_4m_s12": "meda_30x60_4d_4m_s12/0_final_state",
+    "meda_80x80_10d_fov19_vdn": "meda_80x80_10d_fov19_vdn",
 }
 # a sum of T = 80 per-step team rewards, each within 1e-5 of JAX's
 REWARD_SUM_ATOL = 1e-5
@@ -190,41 +203,77 @@ def test_full_export_resumes_the_learner_state(tmp_path):
     assert torch.equal(t.generator.get_state(), gen)   # no key to take
 
 
-def test_flagship_greedy_matches_jax_at_20x20():
-    """The flagship's EMA weights, the JAX package's from its Orbax
+def _greedy_matches_jax(name, env, n, argv, B, fov, **kw):
+    """The export ``name``'s weights, the JAX package's from its Orbax
     checkpoint and the port's from the committed export, evaluated greedily
-    on 16 shared 20x20 chips with JAX's move draws."""
-    name = "dmfb_20x20_4d_fov9_vdn_b64"
-    kw = dict(width=20, length=20, n_droplets=4, fov=9)
-    jenv, tenv = jmake_env("dmfb", **kw), tmake_env("dmfb", **kw)
-    N, A, T, B = 4, 5, jenv.episode_limit, 16
-    params = restored(name)["ema"]["agent"]
-    jnet = JCRNN(n_actions=A, obs_channels=3, fov=9, conv_channels=24)
+    on B shared chips of ``env`` (``kw``: its board) with JAX's move draws:
+    the same per-episode steps and success, rewards within
+    ``REWARD_SUM_ATOL``.  Returns the port's successes."""
+    jenv = jmake_env(env, n_droplets=n, fov=fov, **kw)
+    N, T = n, jenv.episode_limit
+    tree = restored(name)
+    params = (tree["ema"] if "ema" in tree else tree["learner"]["params"])
+    jnet = JCRNN(n_actions=jenv.n_actions, obs_channels=3, fov=fov,
+                 conv_channels=int(tree["net_config"]["hyper_hidden_dim"]))
     states = jax.vmap(jenv.init)(jax.random.split(jax.random.PRNGKey(3), B))
     key = jax.random.PRNGKey(12)
     jres = jmake_rollout(jenv, jnet, 128)(
-        params, states, key, jnp.float32(0), jnp.float32(0), jnp.float32(0),
-        greedy=True)
+        params["agent"], states, key, jnp.float32(0), jnp.float32(0),
+        jnp.float32(0), greedy=True)
 
     args = tconfig.get_evaluate_args(
-        ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=20",
-         "--evaluate_task=2", "--device=cpu",
-         f"--data_dir={os.path.join(WEIGHTS, name)}"])
+        [env, f"--drop_num={n}", "--evaluate_task=2", "--device=cpu",
+         f"--data_dir={os.path.join(WEIGHTS, name)}"] + argv)
     restore_net_config(args, "final")
     trainer = Trainer(tconfig.make_env_from_args(args), args, eval_only=True)
     trainer.load_model("final", params_only=True)
+    cls = tmeda.MEDAState if env == "meda" else tdmfb.DMFBState
     reset = jax.jit(jax.vmap(jenv.reset))(states)
-    t_reset = to_torch_state(reset)
-    troll = tmake_rollout(tenv._replace(reset=lambda s, g: t_reset),
+    t_reset = to_torch_state(reset, cls=cls)
+    troll = tmake_rollout(trainer.env._replace(reset=lambda s, g: t_reset),
                           trainer.net, 128)
-    tres = troll(to_torch_state(states), None, 0.0, 0.0, 0.0, greedy=True,
-                 noise=replay_noise(key, reset, T, B, N, A))
+    tres = troll(to_torch_state(states, cls=cls), None, 0.0, 0.0, 0.0,
+                 greedy=True, noise=replay_noise(key, reset, T, B, N,
+                                                 jenv.n_actions))
     np.testing.assert_array_equal(np.array(jres.steps), tres.steps.numpy())
     np.testing.assert_array_equal(np.array(jres.success),
                                   tres.success.numpy())
     np.testing.assert_allclose(np.array(jres.reward), tres.reward.numpy(),
                                rtol=0, atol=REWARD_SUM_ATOL)
-    assert tres.success.sum() >= 13     # a trained policy (0.96 recorded)
+    return tres.success
+
+
+def test_flagship_greedy_matches_jax_at_20x20():
+    """The flagship's EMA weights on 16 shared 20x20 chips."""
+    success = _greedy_matches_jax("dmfb_20x20_4d_fov9_vdn_b64", "dmfb", 4,
+                                  ["--fov=9", "--chip_size=20"], 16, 9,
+                                  width=20, length=20)
+    assert success.sum() >= 13     # a trained policy (0.96 recorded)
+
+
+@pytest.mark.parametrize("name,n,blocks,least", [
+    # obstacle blocks (0.932 recorded over 500 tasks)
+    ("dmfb_20x20_4d2b_8m", 4, 2, 12),
+    # 10 droplets, the tile kernel's 16-droplet instantiation (0.73)
+    ("dmfb_20x20_10d_fov9_vdn", 10, 0, 8),
+], ids=["4d2b", "10d"])
+def test_export_greedy_matches_jax_at_20x20(name, n, blocks, least):
+    """The blocks policy with 2 blocks and the 10-droplet policy on 16
+    shared 20x20 chips (the blocks from JAX's init)."""
+    success = _greedy_matches_jax(
+        name, "dmfb", n, ["--fov=9", "--chip_size=20",
+                          f"--block_num={blocks}"], 16, 9,
+        width=20, length=20, n_blocks=blocks)
+    assert success.sum() >= least
+
+
+def test_meda_80x80_10d_greedy_matches_jax():
+    """JAX's largest configuration, MEDA 80x80 v0.2 with 10 droplets (T =
+    160), on 3 shared chips, JAX's rollout jitted."""
+    success = _greedy_matches_jax("meda_80x80_10d_fov19_vdn", "meda", 10,
+                                  [], 3, 19, version="0.2", width=80,
+                                  length=80)
+    assert success.sum() >= 2      # a trained policy (0.94 recorded)
 
 
 def test_flagship_evaluates_20_droplets_through_the_entry_point():

@@ -2,10 +2,13 @@
 card's tools (``tools/profile_torch_rollout.py``,
 ``tools/profile_torch_learn.py``, ``tools/profile_torch_mesh.py``,
 ``tools/time_dmfb_step.py``, ``tools/repeat_torch_benches.py``,
-``tools/time_to_quality_torch.py``, ``tools/time_to_quality_seeds.py``)
+``tools/time_to_quality_torch.py``, ``tools/time_to_quality_seeds.py``,
+``tools/degrade_sweeps_torch.py``, ``tools/time_after_profiler.py``)
 import nothing of JAX, its libraries, YAML, matplotlib or the JAX package
-(the GPU machine has none of them), nor the one JAX-side tool of the port,
-``tools/export_flax_npz.py``, whose ``.npz`` files they read with numpy;
+(the GPU machine has none of them), nor the JAX-side tools of the port:
+``tools/export_flax_npz.py``, whose ``.npz`` files they read with numpy,
+and ``tools/degrade_replay_jax.py`` and ``tools/degrade_seeds_jax.py``,
+which run the JAX package's sweeps on the CPU;
 and the entry point runs on the card unless told otherwise, raising where
 there is none."""
 
@@ -26,8 +29,12 @@ PORT_FILES = sorted((ROOT / "marl_dmfb_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / "time_dmfb_step.py",
     ROOT / "tools" / "repeat_torch_benches.py",
     ROOT / "tools" / "time_to_quality_torch.py",
-    ROOT / "tools" / "time_to_quality_seeds.py"]
+    ROOT / "tools" / "time_to_quality_seeds.py",
+    ROOT / "tools" / "degrade_sweeps_torch.py",
+    ROOT / "tools" / "time_after_profiler.py"]
 EXPORTER = ROOT / "tools" / "export_flax_npz.py"
+JAX_SIDE_TOOLS = [ROOT / "tools" / "degrade_replay_jax.py",
+                  ROOT / "tools" / "degrade_seeds_jax.py"]
 # the committed export of the 10x10-4d policy that the evaluation tests load
 POLICY = ROOT / "tests" / "fixtures" / "torch_weights" / "dmfb_10x10_4d_fov9_vdn"
 
@@ -84,6 +91,18 @@ def test_no_port_file_names_the_exporter():
     for path in PORT_FILES:
         named = [n for n in _code_names(path)
                  if re.search(r"\bexport_flax_npz\b", n)]
+        assert not named, f"{path.relative_to(ROOT)} names {named}"
+
+
+@pytest.mark.parametrize("tool", JAX_SIDE_TOOLS, ids=lambda p: p.name)
+def test_no_port_file_names_a_jax_side_tool(tool):
+    """The JAX-side sweep tools import JAX; no port file or card tool
+    imports or runs them."""
+    assert tool.is_file() and tool not in PORT_FILES
+    assert "jax" in set(_imported_roots(tool))
+    for path in PORT_FILES:
+        named = [n for n in _code_names(path)
+                 if re.search(rf"\b{tool.stem}\b", n)]
         assert not named, f"{path.relative_to(ROOT)} names {named}"
 
 
