@@ -54,8 +54,10 @@ Phases, each printing its seconds:
    ``artifacts/README.md`` less ``SUCCESS_SLACK``, over 100 tasks, or 500
    where that rate is below 0.95; and the flagship recipe's policy that the
    port trained from scratch on the card (``tools/time_to_quality_torch.py``,
-   the CLI's seed) on 50x50, held to its own recorded rate less
-   ``SUCCESS_SLACK``; each rollout launching the tile kernel T times and
+   the CLI's seed) on 50x50, and the newest checkpoints of the bf16
+   flagship (50x50, the float32 path), the 4-rank mesh (10x10, 20x20) and
+   the seed farm's first seed (10x10), each held to its own recorded rate
+   less ``SUCCESS_SLACK``; each rollout launching the tile kernel T times and
    the wide kernel never; greedy rollouts of the 4-, 5- and 10-droplet
    policies (``GREEDY_CMP``) on the card and on the CPU from the same chips
    and draws, half of them on worn electrodes, which must give the same
@@ -74,8 +76,9 @@ Phases, each printing its seconds:
    80x80-10d), MEDA QMIX and DMFB QMIX policies (the last also on 50x50,
    its 20x20 mixer dropped) and the MEDA 30x60-3d VDN policy that the port
    trained from scratch on the card (``tools/time_to_quality_torch.py
-   --recipe meda_30x60_3d``, the CLI's seed) through the evaluate entry
-   point, 100 tasks each (500 where the recorded rate is below 0.95), held
+   --recipe meda_30x60_3d``, the CLI's seed) and the DMFB QMIX flagship
+   that it trained (20x20, and 50x50 with its own mixer dropped) through
+   the evaluate entry point, 100 tasks each (500 where the recorded rate is below 0.95), held
    to their recorded rates less ``SUCCESS_SLACK``, with the kernel launched
    T times a DMFB QMIX rollout;
    ``train meda --drop_num=4`` and ``train dmfb --alg=qmix
@@ -246,6 +249,15 @@ TRAINED = [
     # CLI's seed): its final rate in marl_dmfb_tpu_torch/artifacts/
     # time_to_quality.json
     ("port_flagship_50x50", "dmfb_20x20_4d_fov9_vdn_torch", 50, [], 1.00),
+    # the bf16 flagship, the 4-rank mesh and the seed farm's first seed,
+    # trained from scratch by the port on the card and stopped at a time
+    # limit: each newest checkpoint's rate in that artifact (bf16 scored
+    # on the float32 path, as its artifact entry was)
+    ("port_bf16_50x50", "dmfb_20x20_4d_bf16_torch", 50, [], 0.88),
+    ("port_mesh_10x10", "mesh8_10x10_2d_torch", 10, ["--drop_num=2"], 0.97),
+    ("port_mesh_20x20", "mesh8_10x10_2d_torch", 20, ["--drop_num=2"], 1.00),
+    ("port_farm_10x10", "seedfarm_10x10_2d_torch", 10, ["--drop_num=2"],
+     0.97),
     # the rest of the JAX package's DMFB policies: 5 and 10 droplets (the
     # tile kernel's 8- and 16-droplet instantiations), obstacle blocks (a
     # block mask), 2 and 3 droplets, v0.1 at 3; the 20x20 10d and 4d2b and
@@ -332,6 +344,16 @@ MEDA_TRAINED = [
      1.00),
     # the 20x20 mixer does not fit 50x50: dropped, the agent evaluated
     ("dmfb_qmix_50x50", "dmfb_20x20_4d_fov9_qmix",
+     ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=50", "--alg=qmix"],
+     0.98),
+    # the QMIX flagship trained from scratch by the port on the card (the
+    # CLI's seed), its newest checkpoint: its rates in marl_dmfb_tpu_torch/
+    # artifacts/time_to_quality.json; on 50x50 the port's own 20x20 mixer
+    # is dropped
+    ("dmfb_qmix_20x20_port", "dmfb_20x20_4d_fov9_qmix_torch",
+     ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=20", "--alg=qmix"],
+     0.96),
+    ("dmfb_qmix_50x50_port", "dmfb_20x20_4d_fov9_qmix_torch",
      ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=50", "--alg=qmix"],
      0.98),
 ]

@@ -11,8 +11,18 @@ derived from JAX's arrays alone:
 
 * each row's epoch count is JAX's;
 * each block of 5 epochs holds 5 x 20 tasks x 5 chips = 500 episodes a
-  side: the two mean success rates differ by at most ``SIGMAS`` binomial
-  sigma of the difference of two independent rates over 500 episodes,
+  side: the two mean success rates differ by at most ``SIGMAS`` sigma of
+  the difference of two independent single seeds' block means.  Where
+  ``degrade_seed_spread.json`` holds the row at ``MIN_SEEDS`` or more of
+  JAX's seeds, that sigma is ``sqrt(2) s_b``, with ``s_b`` the standard
+  deviation of JAX's seeds' block means as the over-seeds test below takes
+  it (:func:`_jax_block_sd`): a collapsing row's block mean varies from
+  seed to seed with the collapse epoch, far beyond the binomial sigma of
+  its 500 episodes, and that binomial sigma accepted only 11 of JAX's own
+  21 seeds against JAX's committed seed on ``50by50-4d0b-eps0.3-
+  b64flagship``; ``sqrt(2) s_b`` accepts every one of JAX's seeds there
+  (and on ``20by20-10d0b``) and still rejects the port's curve moved a few
+  epochs.  Elsewhere the sigma is binomial,
   ``sqrt(p_j (1 - p_j) / 500 + p_p (1 - p_p) / 500)``, each rate taken as
   ``(500 p + 2) / 504`` (Agresti-Coull) so that a block at 1.0 still has a
   sigma (8 episodes' worth at 4 sigma);
@@ -110,22 +120,49 @@ def test_the_required_rows_ran_on_the_card():
         assert r["launches"] == want and r["launches_wide"] == 0, name
 
 
+def _jax_block_sd(jax_seeds: dict, b: int) -> float:
+    """``s_b``: the standard deviation of JAX's seeds' mean success over
+    the block of epochs starting at ``b``, at least the binomial sigma of
+    one seed's block (500 episodes, the Agresti-Coull rate of JAX's mean
+    over the seeds)."""
+    n = BLOCK * tool.TASKS * 5
+    blocks = np.array([np.mean(r["success"][b:b + BLOCK])
+                       for r in jax_seeds.values()])
+    aj = (n * blocks.mean() + 2) / (n + 4)
+    return max(blocks.std(ddof=1), np.sqrt(aj * (1 - aj) / n))
+
+
+def _block_misses(row: str, success, jax_success) -> list:
+    """The blocks where one seed's curve ``success`` is more than
+    ``SIGMAS`` sigma from another's, ``jax_success`` (module docstring):
+    ``(first epoch, difference, bound)`` each."""
+    n = BLOCK * tool.TASKS * 5
+    jax_seeds = _spread().get("jax", {}).get(row, {})
+    misses = []
+    for b in range(0, len(jax_success), BLOCK):
+        pj = float(np.mean(jax_success[b:b + BLOCK]))
+        pp = float(np.mean(success[b:b + BLOCK]))
+        if len(jax_seeds) >= MIN_SEEDS:
+            sigma = np.sqrt(2) * _jax_block_sd(jax_seeds, b)
+        else:
+            aj, ap = (n * pj + 2) / (n + 4), (n * pp + 2) / (n + 4)
+            sigma = np.sqrt(aj * (1 - aj) / n + ap * (1 - ap) / n)
+        if abs(pp - pj) > SIGMAS * sigma:
+            misses.append((b, pp - pj, SIGMAS * sigma))
+    return misses
+
+
 @pytest.mark.parametrize("row", sorted(_artifact()))
 def test_sweep_follows_jax(row):
     port, jax = _artifact()[row], _jax(row)
     epochs = jax["success"].shape[1]
     assert port["epochs"] == epochs == len(port["success"])
 
-    n = BLOCK * tool.TASKS * 5
     jax_success = jax["success"].mean(axis=0)
-    for b in range(0, epochs, BLOCK):
-        pj = float(jax_success[b:b + BLOCK].mean())
-        pp = float(np.mean(port["success"][b:b + BLOCK]))
-        aj, ap = (n * pj + 2) / (n + 4), (n * pp + 2) / (n + 4)
-        sigma = np.sqrt(aj * (1 - aj) / n + ap * (1 - ap) / n)
-        assert abs(pp - pj) <= SIGMAS * sigma, (
-            f"{row} epochs {b}-{b + BLOCK - 1}: success {pp:.3f} against "
-            f"JAX's {pj:.3f} (4 sigma {SIGMAS * sigma:.3f})")
+    misses = _block_misses(row, port["success"], jax_success)
+    assert not misses, [
+        f"{row} epochs {b}-{b + BLOCK - 1}: success off JAX's by {d:.3f} "
+        f"(4 sigma {bound:.3f})" for b, d, bound in misses]
 
     if (jax_success < 0.5).any():
         want = _first_below_half(jax_success)
@@ -179,19 +216,60 @@ def test_sweep_follows_jax_over_seeds(row):
         f"{n_p} seeds against JAX's {first['jax'].mean():.2f} over {n_j} "
         f"(4 sigma {SIGMAS * s_j * scale:.2f})")
 
-    n = BLOCK * tool.TASKS * 5
     for b in range(0, epochs, BLOCK):
         blocks = {k: np.array([np.mean(r["success"][b:b + BLOCK])
                                for r in side.values()])
                   for k, side in (("port", port), ("jax", jax))}
         pj = blocks["jax"].mean()
-        aj = (n * pj + 2) / (n + 4)
-        s_b = max(blocks["jax"].std(ddof=1), np.sqrt(aj * (1 - aj) / n))
+        s_b = _jax_block_sd(jax, b)
         diff = abs(blocks["port"].mean() - pj)
         assert diff <= SIGMAS * s_b * scale, (
             f"{row} epochs {b}-{b + BLOCK - 1}: success "
             f"{blocks['port'].mean():.3f} over {n_p} seeds against JAX's "
             f"{pj:.3f} over {n_j} (4 sigma {SIGMAS * s_b * scale:.3f})")
+
+
+def _spread_rows() -> list:
+    return sorted(r for r, seeds in _spread().get("jax", {}).items()
+                  if len(seeds) >= MIN_SEEDS and r in _artifact())
+
+
+@pytest.mark.parametrize("row", _spread_rows())
+def test_single_seed_blocks_accept_every_jax_seed(row):
+    """The single-seed block criterion of a row with a seed spread takes
+    each of JAX's own seeds against JAX's committed seed."""
+    jax_success = _jax(row)["success"].mean(axis=0)
+    seeds = _spread()["jax"][row]
+    assert len(seeds) >= MIN_SEEDS
+    for seed, r in seeds.items():
+        assert not _block_misses(row, r["success"], jax_success), (row, seed)
+
+
+def _shifted(success, by: int) -> np.ndarray:
+    """The curve moved ``by`` epochs later (earlier where negative), its
+    ends held at the first or last epoch's rate."""
+    c = np.asarray(success, float)
+    if by < 0:
+        return np.concatenate([c[-by:], np.repeat(c[-1], -by)])
+    return np.concatenate([np.repeat(c[0], by), c[:len(c) - by]])
+
+
+# The port's committed curve on the b64 row collapses one epoch before
+# JAX's committed seed (44 against 45), so 5 epochs later it lies 4 after
+# JAX's and its worst block reads 0.91 of the bound; 6 later reads 1.38.
+SHIFTS = {"20by20-10d0b": (-3, 5),
+          "50by50-4d0b-eps0.3-b64flagship": (-3, 6)}
+
+
+@pytest.mark.parametrize("row,by", [(r, by) for r in _spread_rows()
+                                    for by in SHIFTS[r]])
+def test_single_seed_blocks_reject_a_shifted_curve(row, by):
+    """The same criterion still rejects the port's committed curve moved a
+    few epochs."""
+    jax_success = _jax(row)["success"].mean(axis=0)
+    port = _artifact()[row]["success"]
+    assert not _block_misses(row, port, jax_success)
+    assert _block_misses(row, _shifted(port, by), jax_success)
 
 
 def test_fold_equals_the_means_of_the_arrays(tmp_path, monkeypatch):

@@ -563,3 +563,285 @@ def test_packed_run_keeps_what_resumes_it(meda_run, tmp_path):
                      "--budget=10", f"--out={tmp_path}"])
     assert [seeds.key(a, s) for s in a.seeds] == ["default",
                                                   "seed_1_replication"]
+
+
+# The recipes of the QMIX and bf16 flagships, the seed farm and the mesh,
+# each cut to SMALL (the farm to 2 seeds, the mesh to 2 gloo ranks); QMIX
+# scored on 6x6 (``--score_board``) and its newest checkpoint also on 7x7,
+# bf16 on 5x5 and the mesh's newest checkpoint also on 5x5, in place of the
+# recipes' boards (their final boards patched into ``ttq.RECIPES``).
+RECIPE_JAX_TAGS = {"dmfb_flagship_qmix": 41, "dmfb_flagship_bf16": 41,
+                   "seedfarm_10x10_2d": 7, "mesh_10x10_2d": 13}
+
+
+def _recipe(tmp, recipe, *flags, extra=()):
+    return [f"--recipe={recipe}", "--seed=3", f"--run_dir={tmp / recipe}",
+            "--device=cpu", f"--out={tmp / 'ttq.json'}", *flags,
+            "--extra", *SMALL, *extra]
+
+
+@pytest.fixture(scope="module")
+def recipe_runs(tmp_path_factory):
+    """The four recipes, each trained, scored and folded into one
+    artifact; returns the directory, the artifact and the evaluate
+    entry point's argument lists."""
+    from marl_dmfb_tpu_torch import evaluate
+
+    tmp = tmp_path_factory.mktemp("ttq_recipes")
+    calls, main = [], evaluate.main
+
+    def recorded(argv=None):
+        calls.append(list(argv))
+        return main(argv)
+
+    torch.manual_seed(0)
+    # one thread: on a loaded host many threads slow these small ops
+    # by orders of magnitude
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(evaluate, "main", recorded)
+            for recipe, boards in (("dmfb_flagship_qmix", (7,)),
+                                   ("mesh_10x10_2d", (5,))):
+                m.setitem(ttq.RECIPES, recipe, ttq.RECIPES[recipe]._replace(
+                    final_boards=boards))
+            ttq.main(_recipe(tmp, "dmfb_flagship_qmix", "--score_board=6"))
+            ttq.main(_recipe(tmp, "dmfb_flagship_bf16", "--score_board=5"))
+            ttq.main(_recipe(tmp, "seedfarm_10x10_2d",
+                             extra=["--vmap_seeds=2"]))
+            ttq.main(_recipe(tmp, "mesh_10x10_2d",
+                             extra=["--mesh=2", "--evaluate_task=10"]))
+    finally:
+        torch.set_num_threads(threads)
+    with open(tmp / "ttq.json") as f:
+        return tmp, json.load(f), calls
+
+
+def _scored(calls, recipe):
+    return [c for c in calls if any(f"{recipe}" in x for x in c)]
+
+
+def test_qmix_recipe_scores_its_own_checkpoints(recipe_runs, jax_artifact):
+    """QMIX checkpoints go under ``model/qmix/``; every one is scored from
+    there by ``evaluate --alg=qmix`` (the parent tool passed no ``--alg``
+    and looked under ``vdn/``) on a board other than the training's, where
+    the port's own checkpoint loads its agent and drops its mixer, the
+    newest also on the final boards."""
+    tmp, data, calls = recipe_runs
+    entry = data["dmfb_flagship_qmix"]
+    model = tmp / "dmfb_flagship_qmix" / "model"
+    assert sorted(p.name for p in model.iterdir()) == ["qmix"]
+    scored = _scored(calls, "dmfb_flagship_qmix")
+    assert len(scored) == 4 + 1 and all("--alg=qmix" in c for c in scored)
+    # the parent tool's call, without --alg, finds no checkpoint
+    from marl_dmfb_tpu_torch import evaluate
+    with pytest.raises(FileNotFoundError, match="vdn"):
+        evaluate.main([x for x in scored[0] if not x.startswith("--alg")])
+    assert [c["tag"] for c in entry["checkpoints"]] == ["0", "1", "2",
+                                                        "final"]
+    for c in entry["checkpoints"]:
+        assert set(c) == set(jax_artifact["checkpoints"][0])
+    assert set(entry["total_run"]) == {"env_steps", "wall_s",
+                                       "success_50x50_final",
+                                       "success_7x7_final"}
+    assert "--alg=qmix" in entry["description"]
+    assert "fresh mixer" in entry["description"]
+    assert ttq.RECIPES["dmfb_flagship_qmix"].final_boards == (20, 10)
+
+
+def test_bf16_recipe_scores_float32_master_weights(recipe_runs):
+    """bf16 trains with ``--compute_dtype=bf16`` and saves float32 params;
+    its checkpoints are scored on the float32 path, as JAX scored its
+    run, and the entry says so."""
+    tmp, data, calls = recipe_runs
+    entry = data["dmfb_flagship_bf16"]
+    a = ttq.parse(_recipe(tmp, "dmfb_flagship_bf16"))
+    assert ttq._args(a).compute_dtype == "bf16"
+    scored = _scored(calls, "dmfb_flagship_bf16")
+    assert len(scored) == 4
+    assert not any("--compute_dtype" in x for c in scored for x in c)
+    tree = checkpoint.load(ttq._ckpt(a, 0, "final"))
+    for part in ("agent", "ema"):
+        params = tree["ema"]["agent"] if part == "ema" else \
+            tree["learner"]["params"]["agent"]
+        assert {v.dtype for v in params.values()} == {torch.float32}
+    assert "--compute_dtype=bf16" in entry["description"]
+    assert ("trained in bf16; scored on the float32 evaluation path on the "
+            "float32 master weights") in entry["description"]
+
+
+def test_farm_folds_each_seed_into_one_entry(recipe_runs):
+    """The farm's (S, E) online curves and each seed's final checkpoint,
+    scored by ``evaluate`` from that seed's run, fold into one entry."""
+    from marl_dmfb_tpu_torch.trainer import curve_dir, curve_prefix
+
+    tmp, data, calls = recipe_runs
+    entry = data["seedfarm_10x10_2d"]
+    args = ttq._args(ttq.parse(_recipe(tmp, "seedfarm_10x10_2d",
+                                       extra=["--vmap_seeds=2"])))
+    base = os.path.join(curve_dir(args), curve_prefix(args))
+    success = np.load(f"{base}success_rate_farm.npy")
+    assert success.shape == (2, 4)
+    assert entry["seeds"] == [3, 4]
+    assert [c["tag"] for c in entry["checkpoints"]] == ["0", "1", "2",
+                                                        "final"]
+    assert [c["success"] for c in entry["checkpoints"]] == [
+        [round(float(x), 2) for x in success[:, i]] for i in range(4)]
+    assert [c["wall_s"] for c in entry["checkpoints"]] == np.load(
+        f"{base}runtime_farm.npy").tolist()
+    assert len(entry["first_crossing"]) == 2
+    finals = entry["total_run"]["independent_final"]
+    assert [f["tag"] for f in finals] == ["final", "final"]
+    assert entry["total_run"]["success_final"] == entry["checkpoints"][-1][
+        "success"]
+    scored = _scored(calls, "seedfarm_10x10_2d")
+    assert [c[-2] for c in scored] == ["--load_model_name=0_final",
+                                       "--load_model_name=1_final"]
+    assert (tmp / "seedfarm_10x10_2d" / "deploy" / "model" / "vdn" / "fov5" /
+            "0_final_state.pt").exists()
+
+
+def test_mesh_recipe_folds_rank_zero(recipe_runs):
+    """The mesh recipe trains on 2 gloo ranks through the train CLI and
+    folds rank 0's online curve and its final checkpoint's scores."""
+    tmp, data, calls = recipe_runs
+    entry = data["mesh_10x10_2d"]
+    a = ttq.parse(_recipe(tmp, "mesh_10x10_2d",
+                          extra=["--mesh=2", "--evaluate_task=10"]))
+    assert ttq.on_mesh(a) and "--mesh=off" not in ttq.train_argv(a)
+    assert ttq._args(a).mesh == "2"
+    online = ttq.runtime(a, 0, "success_rate")
+    assert [c["success"] for c in entry["checkpoints"]] == [
+        round(x, 2) for x in online]
+    assert [c["tag"] for c in entry["checkpoints"]] == ["0", "1", "2",
+                                                        "final"]
+    run = entry["total_run"]
+    assert run["independent_final"]["tag"] == "final"
+    assert run["independent_final_5x5"]["n_tasks"] == 100
+    assert "--mesh=4" in entry["description"]
+    assert "--mesh=4" in ttq.train_argv(ttq.parse(
+        ["--recipe=mesh_10x10_2d", "--run_dir=x"]))
+
+
+@pytest.mark.parametrize("recipe", sorted(RECIPE_JAX_TAGS))
+def test_committed_recipe_entries(recipe):
+    """Each recipe's committed entry: trained on the H100, named with its
+    power limit, the recipe's flags and seed in the description, JAX's
+    checkpoint tags (a prefix of them where the run was stopped before its
+    end), and the fold's first crossing."""
+    with open(PORT_ARTIFACT) as f:
+        entry = json.load(f)[recipe]
+    r = ttq.RECIPES[recipe]
+    assert "H100" in entry["card"] and " W" in entry["card"]
+    assert entry["card"] in entry["description"]
+    assert " ".join(r.flags + ["--seed=12"]) in entry["description"]
+    rows = entry["checkpoints"]
+    n = RECIPE_JAX_TAGS[recipe]
+    jax_tags = [str(i) for i in range(n - 1)] + ["final"]
+    tags = [c["tag"] for c in rows]
+    ended = tags[-1] == "final"
+    assert tags == (jax_tags if ended else jax_tags[:len(tags)])
+    cycle = 100000 if recipe.startswith("seedfarm") else 50000
+    assert [c["env_steps"] for c in rows[:n - 1]] == [
+        i * cycle for i in range(min(len(rows), n - 1))]
+    folded = ttq.fold([c[r.success] for c in rows],
+                      [c["wall_s"] for c in rows], cycle=cycle,
+                      total_steps=2_000_000 if r.board else 600_000,
+                      key=r.success, ended=ended)
+    assert entry["checkpoints"] == folded["checkpoints"]
+    first = entry["first_crossing"]
+    strip = (lambda c: c if c is None else
+             {k: v for k, v in c.items() if k != "after_resume_at"})
+    assert (list(map(strip, first)) if isinstance(first, list)
+            else strip(first)) == folded["first_crossing"]
+    if recipe.startswith("seedfarm"):
+        assert entry["seeds"] == list(range(12, 20))
+        assert {len(c["success"]) for c in rows} == {8}
+
+
+def test_seeds_tool_runs_each_recipe_and_packs_a_farm(recipe_runs,
+                                                      tmp_path):
+    """``tools/time_to_quality_seeds.py`` takes several recipes, a process
+    for each recipe and seed; an ended farm packs its curves, scores and
+    deploy export and none of its checkpoints, and a stopped one keeps its
+    newest resume checkpoint, from which the tool reads the same curves
+    and the train CLI's ``--load_model`` carries the farm to its end."""
+    seeds = _seeds_tool()
+    a = seeds.parse(["--recipe", "dmfb_flagship_qmix", "seedfarm_10x10_2d",
+                     "--seeds", "12", "--budget=10", f"--out={tmp_path}"])
+    assert a.recipe == ["dmfb_flagship_qmix", "seedfarm_10x10_2d"]
+    assert seeds.tool_argv(a, "seedfarm_10x10_2d", 12)[2:4] == [
+        "--recipe=seedfarm_10x10_2d", "--seed=12"]
+    src, _, _ = recipe_runs
+    argv = _recipe(src, "seedfarm_10x10_2d", extra=["--vmap_seeds=2"])
+    seeds.pack(ttq.parse(argv), str(tmp_path / "ended"))
+    packed = [p.relative_to(tmp_path / "ended").as_posix()
+              for p in (tmp_path / "ended").rglob("*.pt")]
+    assert packed == ["deploy/model/vdn/fov5/0_final_state.pt"]
+    assert (tmp_path / "ended" / "scores.json").exists()
+    # stopped after its second evaluation: no farm curves yet
+    stopped = tmp_path / "stopped"
+    shutil.copytree(src / "seedfarm_10x10_2d", stopped)
+    for path in stopped.rglob("*_farm.npy"):
+        os.remove(path)
+    t = ttq.parse(_recipe(tmp_path, "seedfarm_10x10_2d",
+                          extra=["--vmap_seeds=2"]))
+    t.run_dir = str(stopped)
+    success, times, ended, newest = ttq.farm_progress(t)
+    assert not ended and newest == "2" and success.shape == (2, 3)
+    seeds.pack(t, str(tmp_path / "packed"))
+    model = tmp_path / "packed" / "model" / "vdn" / "fov5"
+    assert sorted(p.name for p in model.iterdir()) == ["farm_2_resume.pt"]
+    t.run_dir = str(tmp_path / "packed")
+    again = ttq.farm_progress(t)
+    assert np.array_equal(again[0], success) and again[3] == "2"
+    torch.manual_seed(0)
+    ttq.train(t)
+    done, _, ended, newest = ttq.farm_progress(t)
+    assert ended and newest == "final" and done.shape == (2, 4)
+    assert np.array_equal(done[:, :3], success)
+
+
+# the recipes' deploy exports (the JAX artifact's name + "_torch"): the
+# evaluate CLI of each one's training board
+RECIPE_EXPORTS = {
+    "dmfb_20x20_4d_fov9_qmix_torch": ["dmfb", "--drop_num=4", "--fov=9",
+                                      "--chip_size=20", "--alg=qmix"],
+    "dmfb_20x20_4d_bf16_torch": ["dmfb", "--drop_num=4", "--fov=9",
+                                 "--chip_size=20"],
+    "seedfarm_10x10_2d_torch": ["dmfb", "--drop_num=2"],
+    "mesh8_10x10_2d_torch": ["dmfb", "--drop_num=2"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(RECIPE_EXPORTS))
+def test_recipe_exports_load_strictly(name):
+    """Each recipe's committed deploy export (the run's newest EMA params,
+    QMIX's mixer among them) loads by name into the port's nets bitwise,
+    and a greedy rollout of a few tasks on the CPU runs."""
+    from marl_dmfb_tpu_torch.config import (get_evaluate_args,
+                                            make_env_from_args)
+    from marl_dmfb_tpu_torch.trainer import (Trainer, _named,
+                                             restore_net_config)
+
+    args = get_evaluate_args(RECIPE_EXPORTS[name] + [
+        "--device=cpu", "--evaluate_task=3",
+        f"--data_dir={PORT_POLICY.parent / name}"])
+    path = checkpoint.model_state_path(args, "final")
+    assert path.endswith(f"{args.alg}/fov9/0_final_state.pt")
+    assert os.path.getsize(path) < 2 ** 21
+    tree = checkpoint.load(path)
+    assert set(tree) == {"ema", "epsilon", "net_config"}
+    restore_net_config(args, "final")
+    trainer = Trainer(make_env_from_args(args), args, eval_only=True)
+    trainer.load_model("final", params_only=True)
+    live = _named(trainer.net, trainer.mixer)
+    assert live.keys() == tree["ema"].keys()
+    for part, params in tree["ema"].items():
+        assert live[part].keys() == params.keys()
+        for k, v in params.items():
+            assert v.dtype == torch.float32
+            assert torch.equal(live[part][k], v), (part, k)
+    m = trainer.evaluate()
+    assert 0.0 <= m["success_rate"] <= 1.0

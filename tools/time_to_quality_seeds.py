@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Several seeds of a ``tools/time_to_quality_torch.py`` recipe trained at
-once on one device within a time limit, folded into one artifact, and
-packed to resume elsewhere.
+"""Several seeds of one or more ``tools/time_to_quality_torch.py``
+recipes trained at once on one device within a time limit, folded into one
+artifact, and packed to resume elsewhere.
 
     python3 tools/time_to_quality_seeds.py --recipe meda_30x60_3d \\
         --seeds 12 1 --budget 3300 --out build/ttq_out
+    python3 tools/time_to_quality_seeds.py --recipe dmfb_flagship_qmix \\
+        dmfb_flagship_bf16 seedfarm_10x10_2d --seeds 12 --budget 3300 \\
+        --out build/ttq_out
 
-1. **train**: one ``time_to_quality_torch.py`` process a seed on the run
-   directory ``build/ttq/<recipe>_s<seed>/`` (it resumes a run there), all
-   started together, each with its output in
+1. **train**: one ``time_to_quality_torch.py`` process a recipe and seed
+   on the run directory ``build/ttq/<recipe>_s<seed>/`` (it resumes a run
+   there), all started together, each with its output in
    ``<out>/<recipe>_s<seed>.log``; a process still running ``--budget``
    seconds after the start is ended there (its newest checkpoint whose
    time is recorded stays the resume point).  A seed whose process
@@ -16,14 +19,16 @@ packed to resume elsewhere.
    failed, makes the command exit 1, after the fold and the pack.  A process whose run
    ends within the budget also folds it, into
    ``<out>/<recipe>_s<seed>.json``.
-2. **fold**: each seed in turn, ``--no_train``, into
+2. **fold**: each recipe and seed in turn, ``--no_train``, into
    ``<out>/time_to_quality.json``, which starts as a copy of the port's
-   committed artifact: the first seed as the
-   recipe's entry, the others nested as ``seed_<s>_replication``.
+   committed artifact: the first seed as the recipe's entry, the others
+   nested in it as ``seed_<s>_replication``.
 3. **pack**: each run directory into ``<out>/<recipe>_s<seed>/``: its
    curves, ``scores.json``, the deploy export, and of each of its runs the
    checkpoint it resumes from and the final one (what
-   ``time_to_quality_torch.segments`` reads), not the other checkpoints.
+   ``time_to_quality_torch.segments`` reads), not the other checkpoints; of
+   a seed farm, its newest resume checkpoint where it has not ended, and
+   none of its seeds' checkpoints.
 
 ``--device`` and ``--extra`` are passed on to every process (``--extra``
 last).
@@ -50,7 +55,7 @@ RUNS = os.path.join(ROOT, "build", "ttq")
 
 def parse(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--recipe", default="flagship")
+    p.add_argument("--recipe", nargs="+", default=["flagship"])
     p.add_argument("--seeds", type=int, nargs="+", default=[12, 1])
     p.add_argument("--budget", type=float, required=True,
                    help="seconds after which a training process is "
@@ -61,9 +66,9 @@ def parse(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def tool_argv(a, seed: int, *flags) -> list:
-    name = f"{a.recipe}_s{seed}"
-    return [sys.executable, TOOL, f"--recipe={a.recipe}", f"--seed={seed}",
+def tool_argv(a, recipe: str, seed: int, *flags) -> list:
+    name = f"{recipe}_s{seed}"
+    return [sys.executable, TOOL, f"--recipe={recipe}", f"--seed={seed}",
             f"--run_dir={os.path.join(RUNS, name)}",
             f"--device={a.device}", *flags, "--extra", *a.extra]
 
@@ -78,15 +83,20 @@ def pack(t, dest: str):
     ``time_to_quality_torch``'s arguments ``t``: a packed run directory is
     a run directory, to put back under ``build/ttq/`` to resume it."""
     keep = set()
-    for run, _, last, done in ttq.segments(t):
-        keep |= {f"{run}_{last}_state.pt"} | (
-            {f"{run}_final_state.pt"} if done else set())
+    if ttq.is_farm(t):
+        progress = ttq.farm_progress(t)
+        if progress is not None and not progress[2]:
+            keep.add(f"farm_{progress[3]}_resume.pt")
+    else:
+        for run, _, last, done in ttq.segments(t):
+            keep |= {f"{run}_{last}_state.pt"} | (
+                {f"{run}_final_state.pt"} if done else set())
     for folder, _, files in os.walk(t.run_dir):
         deploy = "deploy" in os.path.relpath(folder, t.run_dir)
         for name in files:
             if name.endswith(".tmp") or (
-                    name.endswith("_state.pt") and not deploy
-                    and name not in keep):
+                    name.endswith(("_state.pt", "_resume.pt"))
+                    and not deploy and name not in keep):
                 continue
             target = os.path.join(dest, os.path.relpath(folder, t.run_dir))
             os.makedirs(target, exist_ok=True)
@@ -94,21 +104,21 @@ def pack(t, dest: str):
 
 
 def wait(procs, deadline: float) -> list:
-    """The end of step 1 (module docstring): waits for each ``(seed,
+    """The end of step 1 (module docstring): waits for each ``(name,
     process)`` until ``deadline`` (``time.monotonic``), ends those still
-    running then, and returns the seeds whose process exited otherwise
+    running then, and returns the names whose process exited otherwise
     than 0 on its own."""
     failed = []
-    for seed, proc in procs:
+    for name, proc in procs:
         try:
             rc = proc.wait(timeout=max(deadline - time.monotonic(), 0.0))
-            failed += [seed] if rc else []
+            failed += [name] if rc else []
             how = f"exit {rc}"
         except subprocess.TimeoutExpired:
             proc.terminate()
             proc.wait()
             how = "ended at the budget"
-        print(f"seed {seed}: {how}", flush=True)
+        print(f"{name}: {how}", flush=True)
     return failed
 
 
@@ -116,31 +126,36 @@ def main(argv=None) -> int:
     a = parse(argv)
     os.makedirs(a.out, exist_ok=True)
     deadline = time.monotonic() + a.budget
+    runs = [(recipe, seed) for recipe in a.recipe for seed in a.seeds]
     procs, logs = [], []
-    for seed in a.seeds:
-        name = f"{a.recipe}_s{seed}"
+    for recipe, seed in runs:
+        name = f"{recipe}_s{seed}"
         logs.append(open(os.path.join(a.out, f"{name}.log"), "a"))
-        procs.append((seed, subprocess.Popen(
-            tool_argv(a, seed,
+        procs.append((name, subprocess.Popen(
+            tool_argv(a, recipe, seed,
                       f"--out={os.path.join(a.out, name + '.json')}"),
             stdout=logs[-1], stderr=subprocess.STDOUT, cwd=ROOT)))
     failed = wait(procs, deadline)
     for log in logs:
         log.close()
     out = os.path.join(a.out, "time_to_quality.json")
-    shutil.copy2(ARTIFACT, out)
-    for seed in a.seeds:
-        if subprocess.run(tool_argv(a, seed, "--no_train", f"--out={out}",
-                                    f"--key={key(a, seed)}"),
-                          cwd=ROOT).returncode and seed not in failed:
-            failed.append(seed)
-    for seed in a.seeds:
-        name = f"{a.recipe}_s{seed}"
-        packed = os.path.join(a.out, name)
-        shutil.rmtree(packed, ignore_errors=True)
-        pack(ttq.parse(tool_argv(a, seed)[2:]), packed)
+    try:
+        shutil.copy2(ARTIFACT, out)
+        for recipe, seed in runs:
+            name = f"{recipe}_s{seed}"
+            if subprocess.run(tool_argv(a, recipe, seed, "--no_train",
+                                        f"--out={out}",
+                                        f"--key={key(a, seed)}"),
+                              cwd=ROOT).returncode and name not in failed:
+                failed.append(name)
+    finally:
+        # what the runs reached is packed even where the fold failed
+        for recipe, seed in runs:
+            packed = os.path.join(a.out, f"{recipe}_s{seed}")
+            shutil.rmtree(packed, ignore_errors=True)
+            pack(ttq.parse(tool_argv(a, recipe, seed)[2:]), packed)
     if failed:
-        print(f"seeds {failed} failed: see their logs", flush=True)
+        print(f"runs {failed} failed: see their logs", flush=True)
     return 1 if failed else 0
 
 
