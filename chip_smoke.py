@@ -78,12 +78,24 @@ Phases, each printing its seconds:
    trained from scratch on the card (``tools/time_to_quality_torch.py
    --recipe meda_30x60_3d``, the CLI's seed) and the DMFB QMIX flagship
    that it trained (20x20, and 50x50 with its own mixer dropped) through
-   the evaluate entry point, 100 tasks each (500 where the recorded rate is below 0.95), held
-   to their recorded rates less ``SUCCESS_SLACK``, with the kernel launched
-   T times a DMFB QMIX rollout;
+   the evaluate entry point, 100 tasks each (500 where the recorded rate
+   is below 0.95), held to their recorded rates less ``SUCCESS_SLACK``,
+   with the kernel launched T times a DMFB QMIX rollout;
+   JAX's DMFB QMIX export also on 10x10 over 500 tasks (the recorded 0.89
+   less ``SUCCESS_SLACK``);
    ``train meda --drop_num=4`` and ``train dmfb --alg=qmix
    --chip_size=20`` at the CLI's widths for a few cycles, timed; the QMIX
-   learner of MEDA 30x60-3d on the card against the CPU; and a 2-epoch x
+   learners of MEDA 30x60-3d and of the DMFB QMIX flagship (20x20-4d, fov
+   9: a state of 1200 values, the CLI's mixer widths, two hyper layers) on
+   the card against the CPU (``LEARN_UPDATES`` updates on a minibatch of
+   ``QMIX_LEARN_BATCH`` episodes: losses within ``LOSS_RTOL``, params
+   within ``PARAM_ATOL`` outside noise gradients, as phase 5); an
+   epsilon-greedy DMFB QMIX rollout (20x20-4d, B = 64, T = 80, epsilon
+   0.3) of the port's QMIX export through the tile kernel and through the
+   plain step from the same chips and draws, its observations, actions,
+   padding, terminations and global states ``s_ext`` bitwise and its
+   rewards within 1e-5, T launches and none; that export on 10x10 over
+   500 tasks, printed as a reading without a floor; and a 2-epoch x
    20-task MEDA degradation sweep;
 8. the seed farm and the aux modules: ``train dmfb --drop_num=4 --fov=9
    --vmap_seeds=4 --n_parallel_envs=64`` at full width (4 seeds, each with
@@ -346,16 +358,20 @@ MEDA_TRAINED = [
     ("dmfb_qmix_50x50", "dmfb_20x20_4d_fov9_qmix",
      ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=50", "--alg=qmix"],
      0.98),
+    # and on 10x10 (artifacts/README.md's 100-task rate), over 500 tasks
+    ("dmfb_qmix_10x10", "dmfb_20x20_4d_fov9_qmix",
+     ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=10", "--alg=qmix"],
+     0.89),
     # the QMIX flagship trained from scratch by the port on the card (the
-    # CLI's seed), its newest checkpoint: its rates in marl_dmfb_tpu_torch/
-    # artifacts/time_to_quality.json; on 50x50 the port's own 20x20 mixer
-    # is dropped
+    # CLI's seed, unbroken to 1.4M env steps), its newest checkpoint: its
+    # rates in marl_dmfb_tpu_torch/artifacts/time_to_quality.json (20x20
+    # over 500 tasks); on 50x50 the port's own 20x20 mixer is dropped
     ("dmfb_qmix_20x20_port", "dmfb_20x20_4d_fov9_qmix_torch",
      ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=20", "--alg=qmix"],
-     0.96),
+     0.968),
     ("dmfb_qmix_50x50_port", "dmfb_20x20_4d_fov9_qmix_torch",
      ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=50", "--alg=qmix"],
-     0.98),
+     0.97),
 ]
 MEDA_QMIX_TRAIN = [
     # (name, CLI, env steps, (conv, hidden, batch, replay, B, updates a
@@ -367,6 +383,22 @@ MEDA_QMIX_TRAIN = [
      (24, 128, 128, 5000, 2, 1, 1200)),
 ]
 QMIX_LEARN_BATCH = 8
+# the QMIX learners held card against CPU: MEDA 30x60-3d and the DMFB QMIX
+# flagship's (20x20-4d, fov 9: a state of 1200 values), each at the CLI's
+# widths (qmix_hidden_dim, hyper_hidden_dim, two hyper layers)
+QMIX_LEARNERS = [
+    ("MEDA 30x60-3d", ["meda", "--drop_num=3", "--alg=qmix"]),
+    ("DMFB 20x20-4d", ["dmfb", "--chip_size=20", "--drop_num=4", "--fov=9",
+                       "--alg=qmix"]),
+]
+# a DMFB QMIX rollout (20x20-4d, epsilon QMIX_ROLLOUT_EPS) of the port's
+# QMIX export through the tile kernel and through the plain step, from the
+# same chips and draws; and that export's 10x10 rate over LOW_RATE_TASKS
+# tasks, printed as a reading without a floor (10x10 is a zero-shot board
+# whose rate wanders between seeds and checkpoints by more than the slack)
+QMIX_ROLLOUT_B = 64
+QMIX_ROLLOUT_EPS = 0.3
+QMIX_PORT = "dmfb_20x20_4d_fov9_qmix_torch"
 MEDA_SWEEP = dict(epochs=2, tasks=20)
 # phase 8: the seed farm at the main config's widths, cut to about 3 cycles
 # (a failed episode counts T = 40 steps, so a cycle counts at most 64 x 40
@@ -1174,15 +1206,10 @@ def meda_qmix(smi) -> dict:
     """Phase 7: MEDA and QMIX on the card (module docstring); raises on any
     failed check, returns the numbers."""
     from marl_dmfb_tpu_torch import eva_degrade, evaluate
-    from marl_dmfb_tpu_torch.algos.qlearn import QLearner
     from marl_dmfb_tpu_torch.config import (get_evaluate_args,
-                                            get_train_args,
                                             make_env_from_args)
     from marl_dmfb_tpu_torch.envs import meda as tmeda
-    from marl_dmfb_tpu_torch.models.networks import (build_agent_net,
-                                                     build_mixer)
     from marl_dmfb_tpu_torch.ops import dmfb_step
-    from marl_dmfb_tpu_torch.replay import sample, store
     from marl_dmfb_tpu_torch.rollout import make_rollout
     from marl_dmfb_tpu_torch.trainer import Trainer, restore_net_config
 
@@ -1268,36 +1295,21 @@ def meda_qmix(smi) -> dict:
     out["launches_qmix_train"] = out["train"]["dmfb_qmix_20x20"]["launches"]
     out["phase_s"]["train"] = time.perf_counter() - t0
 
-    # 4. the QMIX learner on the card against the CPU, MEDA 30x60-3d
+    # 4. the QMIX learners on the card against the CPU, MEDA 30x60-3d and
+    # the DMFB QMIX flagship's
     t0 = time.perf_counter()
-    qargs = get_train_args(
-        ["meda", "--drop_num=3", "--alg=qmix", "--n_parallel_envs="
-         f"{QMIX_LEARN_BATCH}", f"--buffer_size={QMIX_LEARN_BATCH}",
-         f"--batch_size={QMIX_LEARN_BATCH}", "--evaluate_task=1",
-         f"--data_dir={os.path.join(ROOT, 'build', 'chip_smoke_qmix_cmp')}"],
-        pri=False)
-    qt = Trainer(make_env_from_args(qargs), qargs)
-    res = qt.rollout(qt.env_states, qt.generator, 1.0, 0.0, 0.05)
-    replay = store(qt.replay, res.episodes)
-    batch = sample(replay, QMIX_LEARN_BATCH,
-                   idx=torch.arange(QMIX_LEARN_BATCH, device="cuda"))
-    loss_rel, clean, worst, _ = compare_learner(
-        lambda dev: QLearner(qargs, build_agent_net(qargs).to(dev),
-                             build_mixer(qargs).to(dev)),
-        qt.learner.state(), batch)
-    adam_bound = 2 * qargs.lr * LEARN_UPDATES
-    log(f"phase 7: QMIX learner (MEDA 30x60-3d, mixer state "
-        f"{qargs.state_shape}) card vs CPU over {LEARN_UPDATES} updates at "
-        f"batch {QMIX_LEARN_BATCH}: loss rel diff {loss_rel:.3g} (<= "
-        f"{LOSS_RTOL}), params max diff {clean:.3g} outside noise gradients "
-        f"(<= {PARAM_ATOL}), {worst:.3g} in all (<= {adam_bound:.3g})")
-    if not (loss_rel <= LOSS_RTOL and clean <= PARAM_ATOL
-            and worst <= adam_bound):
-        raise AssertionError("the QMIX learner on the card departs from the "
-                             "CPU")
-    out["qmix_card_vs_cpu"] = dict(loss_rel=loss_rel, param_diff=clean,
-                                   param_diff_all=worst)
+    out["qmix_card_vs_cpu"] = {
+        what: qmix_learner_card_vs_cpu(what, argv)
+        for what, argv in QMIX_LEARNERS}
     out["phase_s"]["qmix_learner"] = time.perf_counter() - t0
+
+    # 6. the DMFB QMIX rollout through the kernel and the plain step, and
+    # the port's QMIX export on 10x10
+    t0 = time.perf_counter()
+    out["qmix_rollout"] = dmfb_qmix_rollout(smi)
+    out["launches_qmix_eval"] += out["qmix_rollout"]["port_qmix_10x10"][
+        "launches"]
+    out["phase_s"]["qmix_rollout"] = time.perf_counter() - t0
 
     # 5. a MEDA degradation sweep with the 4-droplet export
     t0 = time.perf_counter()
@@ -1328,6 +1340,153 @@ def meda_qmix(smi) -> dict:
     out["sweep"] = dict(success_per_epoch=per_epoch, seconds=seconds)
     out["phase_s"]["total"] = time.perf_counter() - t7
     log(f"phase 7: {out['phase_s']['total']:.2f} s")
+    return out
+
+
+def qmix_learner_card_vs_cpu(what, argv) -> dict:
+    """Phase 7: ``LEARN_UPDATES`` updates of the QMIX learner that the
+    train CLI builds from ``argv`` (its widths), on a minibatch of
+    ``QMIX_LEARN_BATCH`` episodes of a random-policy rollout, on the card
+    and on the CPU from one state; raises unless the losses agree within
+    ``LOSS_RTOL`` and the params within ``PARAM_ATOL`` outside noise
+    gradients, as phase 5 holds them."""
+    from marl_dmfb_tpu_torch.algos.qlearn import QLearner
+    from marl_dmfb_tpu_torch.config import get_train_args, make_env_from_args
+    from marl_dmfb_tpu_torch.models.networks import (build_agent_net,
+                                                     build_mixer)
+    from marl_dmfb_tpu_torch.replay import sample, store
+    from marl_dmfb_tpu_torch.trainer import Trainer
+
+    data_dir = os.path.join(ROOT, "build", "chip_smoke_qmix_cmp")
+    qargs = get_train_args(
+        argv + [f"--n_parallel_envs={QMIX_LEARN_BATCH}",
+                f"--buffer_size={QMIX_LEARN_BATCH}",
+                f"--batch_size={QMIX_LEARN_BATCH}", "--evaluate_task=1",
+                f"--data_dir={data_dir}"], pri=False)
+    qt = Trainer(make_env_from_args(qargs), qargs)
+    res = qt.rollout(qt.env_states, qt.generator, 1.0, 0.0, 0.05)
+    replay = store(qt.replay, res.episodes)
+    batch = sample(replay, QMIX_LEARN_BATCH,
+                   idx=torch.arange(QMIX_LEARN_BATCH, device="cuda"))
+    loss_rel, clean, worst, _ = compare_learner(
+        lambda dev: QLearner(qargs, build_agent_net(qargs).to(dev),
+                             build_mixer(qargs).to(dev)),
+        qt.learner.state(), batch)
+    adam_bound = 2 * qargs.lr * LEARN_UPDATES
+    widths = dict(state=qargs.state_shape, qmix_hidden=qargs.qmix_hidden_dim,
+                  hyper_hidden=qargs.hyper_hidden_dim,
+                  two_hyper_layers=qargs.two_hyper_layers,
+                  rnn_hidden=qargs.rnn_hidden_dim,
+                  grad_norm_clip=qargs.grad_norm_clip)
+    log(f"phase 7: QMIX learner ({what}, {widths}) card vs CPU over "
+        f"{LEARN_UPDATES} updates at batch {QMIX_LEARN_BATCH}: loss rel "
+        f"diff {loss_rel:.3g} (<= {LOSS_RTOL}), params max diff "
+        f"{clean:.3g} outside noise gradients (<= {PARAM_ATOL}), "
+        f"{worst:.3g} in all (<= {adam_bound:.3g})")
+    if not (loss_rel <= LOSS_RTOL and clean <= PARAM_ATOL
+            and worst <= adam_bound):
+        raise AssertionError(f"the QMIX learner ({what}) on the card "
+                             "departs from the CPU")
+    return dict(widths, loss_rel=loss_rel, param_diff=clean,
+                param_diff_all=worst)
+
+
+def dmfb_qmix_rollout(smi) -> dict:
+    """Phase 7: an epsilon-greedy DMFB QMIX rollout (20x20-4d, T = 80,
+    ``QMIX_ROLLOUT_B`` chips, epsilon ``QMIX_ROLLOUT_EPS``) of the port's
+    QMIX export through the tile kernel and through the plain step, from
+    the same chips and pre-drawn exploration and move draws: the
+    observations, actions, padding, terminations and global states
+    ``s_ext`` bitwise, the rewards within ``REWARD_ATOL``, the chips after
+    it bitwise, the kernel launched T times by the first and never by the
+    second; then that export on 10x10 over ``LOW_RATE_TASKS`` tasks
+    through the evaluate entry point (a reading, T launches)."""
+    from marl_dmfb_tpu_torch import evaluate
+    from marl_dmfb_tpu_torch.config import (get_evaluate_args,
+                                            make_env_from_args)
+    from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
+    from marl_dmfb_tpu_torch.ops import dmfb_step
+    from marl_dmfb_tpu_torch.rollout import RolloutNoise, make_rollout
+    from marl_dmfb_tpu_torch.trainer import Trainer, restore_net_config
+
+    cli = ["dmfb", "--drop_num=4", "--fov=9", "--alg=qmix",
+           f"--data_dir={os.path.join(WEIGHTS, QMIX_PORT)}"]
+    args = get_evaluate_args(cli + ["--chip_size=20", "--evaluate_task=1"])
+    restore_net_config(args, "final")
+    env = make_env_from_args(args)
+    policy = Trainer(env, args, eval_only=True)
+    policy.load_model("final", params_only=True)
+    B, T = QMIX_ROLLOUT_B, env.episode_limit
+    N, A = args.n_agents, args.n_actions
+    g = torch.Generator(device="cuda").manual_seed(18)
+    start = env.reset(env.init(B, g, "cuda"), g)
+    noise = RolloutNoise(
+        torch.randint(0, A, (T, B, N), generator=g, device="cuda",
+                      dtype=torch.int32),
+        torch.rand((T, B, N), generator=g, device="cuda"),
+        torch.rand((T, B, N), generator=g, device="cuda"))
+    fixed = env._replace(reset=lambda st, gen: st)   # reset above
+    plain = fixed._replace(
+        step_core=lambda st, act, u: tdmfb.step_core(env.params, st, act, u))
+    res, launches = {}, {}
+    for name, e in (("kernel", fixed), ("plain", plain)):
+        roll = make_rollout(e, policy.net, args.rnn_hidden_dim,
+                            with_state=True)
+        dmfb_step.launches = dmfb_step.launches_wide = 0
+        res[name] = roll(start, None, QMIX_ROLLOUT_EPS, 0.0, 0.05,
+                         noise=noise)
+        torch.cuda.synchronize()
+        launches[name] = (dmfb_step.launches, dmfb_step.launches_wide)
+    if launches != {"kernel": (T, 0), "plain": (0, 0)}:
+        raise AssertionError(f"the QMIX rollouts launched {launches}, "
+                             f"expected the tile kernel T = {T} times "
+                             "through the kernel path and never through "
+                             "the plain one")
+    ek, ep = res["kernel"].episodes, res["plain"].episodes
+    if ek.keys() != ep.keys() or "s_ext" not in ek:
+        raise AssertionError(f"the QMIX rollout stored {sorted(ek)}")
+    for k in ("o_ext", "u", "padded", "terminated", "s_ext"):
+        if not torch.equal(ek[k], ep[k]):
+            raise AssertionError(
+                f"the QMIX rollout's {k} differs, kernel against plain "
+                f"({int((ek[k] != ep[k]).sum())} elements)")
+    r_diff = float((ek["r"] - ep["r"]).abs().max())
+    if not r_diff <= REWARD_ATOL or not all(
+            torch.equal(x, y) for x, y in zip(res["kernel"].env_states,
+                                              res["plain"].env_states)):
+        raise AssertionError(f"the QMIX rollout departs from the plain step "
+                             f"(rewards {r_diff})")
+    explored = int((noise.explore_u < QMIX_ROLLOUT_EPS).sum())
+    ended = int(ek["terminated"][:, :-1].any(dim=1).sum())
+    success = float(res["kernel"].success.float().mean())
+    out = dict(B=B, T=T, epsilon=QMIX_ROLLOUT_EPS, reward_diff=r_diff,
+               explored=explored, ended_before_T=ended, success=success,
+               state_dim=int(ek["s_ext"].shape[-1]),
+               state_nonzero=int((ek["s_ext"] != 0).sum()))
+    log(f"phase 7: [{smi}] DMFB QMIX rollout ({QMIX_PORT}, 20x20-4d, B={B}, "
+        f"T={T}, epsilon {QMIX_ROLLOUT_EPS}: {explored} exploring draws, "
+        f"{ended} episodes ended before T, success {success:.3f}), tile "
+        f"kernel == plain step: o_ext, u, padded, terminated and s_ext "
+        f"({out['state_dim']} values a step, {out['state_nonzero']} nonzero) "
+        f"bitwise, the chips after it bitwise, rewards max |diff| "
+        f"{r_diff:.3g} (<= {REWARD_ATOL}); launches {launches}")
+
+    # the port's QMIX export on 10x10: a reading, no floor
+    argv = cli + ["--chip_size=10", f"--evaluate_task={LOW_RATE_TASKS}"]
+    dmfb_step.launches = dmfb_step.launches_wide = 0
+    t1 = time.perf_counter()
+    m = evaluate.main(argv)
+    T10 = make_env_from_args(get_evaluate_args(argv)).episode_limit
+    if (dmfb_step.launches, dmfb_step.launches_wide) != (T10, 0):
+        raise AssertionError(f"the port's QMIX export on 10x10 launched "
+                             f"{dmfb_step.launches} and "
+                             f"{dmfb_step.launches_wide}, expected {T10}")
+    out["port_qmix_10x10"] = dict(m, tasks=LOW_RATE_TASKS, launches=T10,
+                                  seconds=time.perf_counter() - t1)
+    log(f"phase 7: [{smi}] the port's QMIX export ({QMIX_PORT}) on 10x10, "
+        f"{LOW_RATE_TASKS} tasks: success {m['success_rate']:.3f} (a "
+        f"reading, no floor), steps {m['steps']:.2f}, kernel launches "
+        f"{T10}, {out['port_qmix_10x10']['seconds']:.2f} s")
     return out
 
 

@@ -391,10 +391,15 @@ class Trainer:
         self.losses.append(self.learner.learn_many(
             self.replay, self.updates_per_rollout, self.generator))
         if self.ema_net is not None:
-            ema_update(_named(self.ema_net, self.ema_mixer),
-                       _named(self.net, self.mixer), self.cycle_decay)
+            self.ema_step()
         self.n_cycles += 1
         return int(all_reduce_sum(self.mesh, result.steps.sum()))
+
+    def ema_step(self):
+        """The cycle's EMA step (``--param_ema``) over the agent's params
+        and a QMIX mixer's (JAX trainer.py:260-274)."""
+        ema_update(_named(self.ema_net, self.ema_mixer),
+                   _named(self.net, self.mixer), self.cycle_decay)
 
     def _append(self, m: dict):
         self.episode_rewards.append(m["reward"])

@@ -3,7 +3,8 @@ card's tools (``tools/profile_torch_rollout.py``,
 ``tools/profile_torch_learn.py``, ``tools/profile_torch_mesh.py``,
 ``tools/time_dmfb_step.py``, ``tools/repeat_torch_benches.py``,
 ``tools/time_to_quality_torch.py``, ``tools/time_to_quality_seeds.py``,
-``tools/degrade_sweeps_torch.py``, ``tools/time_after_profiler.py``)
+``tools/degrade_sweeps_torch.py``, ``tools/time_after_profiler.py``,
+``tools/ring_size_torch.py``)
 import nothing of JAX, its libraries, YAML, matplotlib or the JAX package
 (the GPU machine has none of them), nor the JAX-side tools of the port:
 ``tools/export_flax_npz.py``, whose ``.npz`` files they read with numpy,
@@ -31,7 +32,8 @@ PORT_FILES = sorted((ROOT / "marl_dmfb_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / "time_to_quality_torch.py",
     ROOT / "tools" / "time_to_quality_seeds.py",
     ROOT / "tools" / "degrade_sweeps_torch.py",
-    ROOT / "tools" / "time_after_profiler.py"]
+    ROOT / "tools" / "time_after_profiler.py",
+    ROOT / "tools" / "ring_size_torch.py"]
 EXPORTER = ROOT / "tools" / "export_flax_npz.py"
 JAX_SIDE_TOOLS = [ROOT / "tools" / "degrade_replay_jax.py",
                   ROOT / "tools" / "degrade_seeds_jax.py"]

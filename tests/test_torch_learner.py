@@ -1,5 +1,6 @@
-"""The port's VDN learner (``marl_dmfb_tpu_torch/algos/qlearn.py``) against
-the JAX package's ``make_learner`` on the CPU: the loss, the gradients, and
+"""The port's VDN learner (``marl_dmfb_tpu_torch/algos/qlearn.py``), and
+where a case says so its QMIX learner, against the JAX package's
+``make_learner`` on the CPU: the loss, the gradients, and
 the params and target params after each of several Adam updates (a target
 sync every 2 updates), from a fresh state and from a carried mid-training
 state, with the last action in the input and without it, and with the
@@ -13,8 +14,8 @@ import torch
 
 from marl_dmfb_tpu_torch.algos.qlearn import QLearner, unroll
 from marl_dmfb_tpu_torch.models.networks import build_agent_net
-from tests.torch_learn_util import (both, check_updates, jax_learner,
-                                    random_batch)
+from tests.torch_learn_util import (QMIX, batch_for, both, check_updates,
+                                    jax_learner, random_batch)
 
 
 @pytest.mark.parametrize("items", [
@@ -27,27 +28,37 @@ def test_adam_updates_match_jax(items):
     assert max(norms) < 9.0               # the default clip stayed inactive
 
 
-def test_clipped_updates_match_jax():
-    # every gradient norm of these batches is above 1 (checked), so the clip
-    # rescales every update
-    _, _, norms = check_updates((("grad_norm_clip", 1.0),), n=3)
+@pytest.mark.parametrize("alg", [(), QMIX], ids=["vdn", "qmix"])
+def test_clipped_updates_match_jax(alg):
+    """Every gradient norm of these batches is above 1 (checked), so the
+    clip rescales every update; under QMIX by one global norm over the
+    agent's and the mixer's gradients, as JAX's ``optax.chain`` clips."""
+    _, port, norms = check_updates((("grad_norm_clip", 1.0),) + alg, n=3)
     assert min(norms) > 1.0
+    assert (port.mixer is not None) == bool(alg)
 
 
-@pytest.mark.parametrize("items", [(), (("lr_decay", True), ("n_steps", 90))],
-                         ids=["adam", "adam_lr_decay"])
+@pytest.mark.parametrize("items", [
+    (), (("lr_decay", True), ("n_steps", 90)),
+    QMIX + (("lr_decay", True), ("n_steps", 90))],
+    ids=["adam", "adam_lr_decay", "qmix_lr_decay"])
 def test_updates_from_a_carried_state_match_jax(items):
     """Three JAX updates, then the state (moments, counts, target) carried
-    across by ``from_flax_learner_state``, then three more in both."""
+    across by ``from_flax_learner_state``, then three more in both; under
+    QMIX the mixer's moments and the schedule's count come across too."""
     J = jax_learner(items)
     st = J.init(jax.random.PRNGKey(1))
     rng = np.random.RandomState(9)
     for _ in range(3):
-        st, _ = J.learn(st, both(random_batch(rng))[0])
+        st, _ = J.learn(st, both(batch_for(J.ta, rng))[0])
     st, port, _ = check_updates(items, n=3, jstate=st, seed=3)
     assert int(st.train_step) == 6
-    count = int(port.state()["opt_state"]["count"])
-    assert count == 6
+    opt = port.state()["opt_state"]
+    assert int(opt["count"]) == 6
+    if "schedule_count" in opt:
+        assert int(opt["schedule_count"]) == 6
+    if port.mixer is not None:
+        assert {"mixer"} <= opt["mu"].keys() and {"mixer"} <= opt["nu"].keys()
 
 
 def test_unroll_feeds_the_hidden_state_forward():

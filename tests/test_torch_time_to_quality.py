@@ -82,10 +82,21 @@ def test_fold_gives_jax_first_crossing(jax_artifact, entry, key):
         assert first["env_steps"] == 500000
 
 
+def _cut(m, recipe="flagship", boards=()):
+    """Patch, through the monkeypatch ``m``, the boards on which every
+    checkpoint of ``recipe`` is also scored: a run cut to SMALL is scored
+    on 5x5 alone (``--score_board``), without the flagship's 10x10 and
+    20x20 (their case is ``recipe_runs``')."""
+    m.setitem(ttq.RECIPES, recipe, ttq.RECIPES[recipe]._replace(
+        boards=boards))
+
+
 def _run(tmp, *extra):
-    return ttq.main(["--seed=3", f"--run_dir={tmp / 'run'}", "--device=cpu",
-                     f"--out={tmp / 'ttq.json'}", "--score_board=5",
-                     *extra, "--extra", *SMALL])
+    with pytest.MonkeyPatch.context() as m:
+        _cut(m)
+        return ttq.main(["--seed=3", f"--run_dir={tmp / 'run'}",
+                         "--device=cpu", f"--out={tmp / 'ttq.json'}",
+                         "--score_board=5", *extra, "--extra", *SMALL])
 
 
 @pytest.fixture(scope="module")
@@ -123,9 +134,10 @@ def test_small_run_writes_jax_keys(small_run, jax_artifact):
         assert list(json.load(f)) == ["0_0", "0_1", "0_2", "0_final"]
 
 
-def test_second_seed_nests_and_deploy_export_loads(small_run):
+def test_second_seed_nests_and_deploy_export_loads(small_run, monkeypatch):
     tmp, entry = small_run
     shutil.copytree(tmp / "run", tmp / "run1")
+    _cut(monkeypatch)
     ttq.main(["--seed=3", f"--run_dir={tmp / 'run1'}", "--device=cpu",
               f"--out={tmp / 'ttq.json'}", "--score_board=5",
               "--key=seed_1_replication", "--extra", *SMALL])
@@ -145,12 +157,13 @@ def test_second_seed_nests_and_deploy_export_loads(small_run):
         assert torch.equal(deploy["ema"]["agent"][k], v), k
 
 
-def test_stopped_run_resumes(small_run, tmp_path):
+def test_stopped_run_resumes(small_run, tmp_path, monkeypatch):
     """A run stopped after its checkpoint 1 (its later checkpoints and
     times gone) resumes from it as run 1 of the remaining 800 env steps,
     with the whole run's learning-rate schedule; the artifact adds run 0's
     time up to checkpoint 1 to run 1's."""
     src, _ = small_run
+    _cut(monkeypatch)
     shutil.copytree(src / "run", tmp_path / "run")
     model = tmp_path / "run" / "model" / "vdn" / "fov5"
     for tag in ("2", "final"):
@@ -559,17 +572,20 @@ def test_packed_run_keeps_what_resumes_it(meda_run, tmp_path):
             "0_final_state.pt").exists()
     assert ttq.segments(ttq.parse(_meda(tmp_path))) == ttq.segments(
         ttq.parse(_meda(src)))
-    a = seeds.parse(["--recipe=meda_30x60_3d", "--seeds", "12", "1",
+    a = seeds.parse(["--runs", "meda_30x60_3d:12", "meda_30x60_3d:1",
                      "--budget=10", f"--out={tmp_path}"])
-    assert [seeds.key(a, s) for s in a.seeds] == ["default",
-                                                  "seed_1_replication"]
+    assert seeds.runs(a) == [("meda_30x60_3d", 12, "default"),
+                             ("meda_30x60_3d", 1, "seed_1_replication")]
 
 
 # The recipes of the QMIX and bf16 flagships, the seed farm and the mesh,
 # each cut to SMALL (the farm to 2 seeds, the mesh to 2 gloo ranks); QMIX
-# scored on 6x6 (``--score_board``) and its newest checkpoint also on 7x7,
-# bf16 on 5x5 and the mesh's newest checkpoint also on 5x5, in place of the
-# recipes' boards (their final boards patched into ``ttq.RECIPES``).
+# scored on 6x6 (``--score_board``) and every checkpoint also on 7x7 over
+# 20 tasks and on its 5x5 training board over 30 (in place of 10x10 and
+# 20x20 over 500), bf16 on 5x5 and the mesh's newest checkpoint also on
+# 5x5, in place of the recipes' boards (QMIX's other boards and the mesh's
+# final boards patched into ``ttq.RECIPES``).
+QMIX_BOARDS = ((7, 20), (5, 30))
 RECIPE_JAX_TAGS = {"dmfb_flagship_qmix": 41, "dmfb_flagship_bf16": 41,
                    "seedfarm_10x10_2d": 7, "mesh_10x10_2d": 13}
 
@@ -602,10 +618,9 @@ def recipe_runs(tmp_path_factory):
     try:
         with pytest.MonkeyPatch.context() as m:
             m.setattr(evaluate, "main", recorded)
-            for recipe, boards in (("dmfb_flagship_qmix", (7,)),
-                                   ("mesh_10x10_2d", (5,))):
-                m.setitem(ttq.RECIPES, recipe, ttq.RECIPES[recipe]._replace(
-                    final_boards=boards))
+            m.setitem(ttq.RECIPES, "mesh_10x10_2d", ttq.RECIPES[
+                "mesh_10x10_2d"]._replace(final_boards=(5,)))
+            _cut(m, "dmfb_flagship_qmix", QMIX_BOARDS)
             ttq.main(_recipe(tmp, "dmfb_flagship_qmix", "--score_board=6"))
             ttq.main(_recipe(tmp, "dmfb_flagship_bf16", "--score_board=5"))
             ttq.main(_recipe(tmp, "seedfarm_10x10_2d",
@@ -626,14 +641,14 @@ def test_qmix_recipe_scores_its_own_checkpoints(recipe_runs, jax_artifact):
     """QMIX checkpoints go under ``model/qmix/``; every one is scored from
     there by ``evaluate --alg=qmix`` (the parent tool passed no ``--alg``
     and looked under ``vdn/``) on a board other than the training's, where
-    the port's own checkpoint loads its agent and drops its mixer, the
-    newest also on the final boards."""
+    the port's own checkpoint loads its agent and drops its mixer, and on
+    each of the recipe's other boards, the training board among them."""
     tmp, data, calls = recipe_runs
     entry = data["dmfb_flagship_qmix"]
     model = tmp / "dmfb_flagship_qmix" / "model"
     assert sorted(p.name for p in model.iterdir()) == ["qmix"]
     scored = _scored(calls, "dmfb_flagship_qmix")
-    assert len(scored) == 4 + 1 and all("--alg=qmix" in c for c in scored)
+    assert len(scored) == 4 * 3 and all("--alg=qmix" in c for c in scored)
     # the parent tool's call, without --alg, finds no checkpoint
     from marl_dmfb_tpu_torch import evaluate
     with pytest.raises(FileNotFoundError, match="vdn"):
@@ -641,13 +656,99 @@ def test_qmix_recipe_scores_its_own_checkpoints(recipe_runs, jax_artifact):
     assert [c["tag"] for c in entry["checkpoints"]] == ["0", "1", "2",
                                                         "final"]
     for c in entry["checkpoints"]:
-        assert set(c) == set(jax_artifact["checkpoints"][0])
+        assert set(c) == set(jax_artifact["checkpoints"][0]) | {
+            "success_7x7", "success_5x5"}
     assert set(entry["total_run"]) == {"env_steps", "wall_s",
                                        "success_50x50_final",
-                                       "success_7x7_final"}
+                                       "success_7x7_final",
+                                       "success_5x5_final"}
     assert "--alg=qmix" in entry["description"]
     assert "fresh mixer" in entry["description"]
-    assert ttq.RECIPES["dmfb_flagship_qmix"].final_boards == (20, 10)
+    r = ttq.RECIPES["dmfb_flagship_qmix"]
+    assert r.final_boards == () and r.boards == ((10, 500), (20, 500))
+
+
+def test_every_checkpoint_is_scored_on_each_board(recipe_runs):
+    """A recipe with other boards scores every checkpoint on each, through
+    the evaluate entry point over that board's number of tasks, once; the
+    fold writes each reading beside the checkpoint's success, the newest's
+    in ``total_run``, each key's tasks in ``n_tasks``; both flagships
+    score every checkpoint on 10x10 and 20x20 over 500 tasks by default,
+    and the seeds tool folds a run under the key that ``--runs`` names."""
+    tmp, data, calls = recipe_runs
+    entry = data["dmfb_flagship_qmix"]
+    scored = _scored(calls, "dmfb_flagship_qmix")
+    with open(tmp / "dmfb_flagship_qmix" / "scores.json") as f:
+        scores = json.load(f)
+    tags = ["0_0", "0_1", "0_2", "0_final"]
+    for board, tasks in QMIX_BOARDS:
+        on = [c for c in scored if f"--chip_size={board}" in c]
+        assert [c[c.index(f"--evaluate_task={tasks}") + 2] for c in on] == [
+            f"--load_model_name={t}" for t in tags]
+        readings = [c[f"success_{board}x{board}"]
+                    for c in entry["checkpoints"]]
+        assert readings == [scores[ttq.board_key(t, board, tasks)]
+                            for t in tags]
+        assert all(0.0 <= x <= 1.0 for x in readings)
+        # a whole number of tasks, to three decimals
+        assert all(abs(x * tasks - round(x * tasks)) <= tasks * 5e-4
+                   for x in readings)
+        assert entry["total_run"][f"success_{board}x{board}_final"] == (
+            readings[-1])
+        assert (f"every checkpoint also on {board}x{board}, {tasks} tasks"
+                in entry["description"])
+    assert entry["n_tasks"] == {"success_50x50": 100, "success_7x7": 20,
+                                "success_5x5": 30}
+    rows = entry["checkpoints"]
+    assert rows == ttq.fold(
+        [c["success_50x50"] for c in rows], [c["wall_s"] for c in rows],
+        total_steps=1200, cycle=400, others={
+            f"success_{b}x{b}": [c[f"success_{b}x{b}"] for c in rows]
+            for b, _ in QMIX_BOARDS})["checkpoints"]
+    for recipe in ("flagship", "dmfb_flagship_qmix"):
+        assert ttq.RECIPES[recipe].boards == ((10, 500), (20, 500))
+    seeds = _seeds_tool()
+    a = seeds.parse(["--runs", "dmfb_flagship_qmix:12", "dmfb_flagship_qmix:1",
+                     "flagship:12:seed_12_control", "--budget=1",
+                     "--out=x"])
+    assert seeds.runs(a) == [("dmfb_flagship_qmix", 12, "default"),
+                             ("dmfb_flagship_qmix", 1, "seed_1_replication"),
+                             ("flagship", 12, "seed_12_control")]
+
+
+def test_a_board_read_over_other_tasks_is_read_again(recipe_runs, tmp_path,
+                                                     monkeypatch):
+    """A run directory whose checkpoints were read on 7x7 over 20 tasks,
+    scored and folded where the recipe reads 7x7 over 10, reads each
+    checkpoint again over 10 and folds those readings: a reading over
+    other tasks is never written under the recipe's ``n_tasks``."""
+    from marl_dmfb_tpu_torch import evaluate
+
+    src, _, _ = recipe_runs
+    shutil.copytree(src / "dmfb_flagship_qmix",
+                    tmp_path / "dmfb_flagship_qmix")
+    calls, main = [], evaluate.main
+
+    def recorded(argv=None):
+        calls.append(list(argv))
+        return main(argv)
+
+    monkeypatch.setattr(evaluate, "main", recorded)
+    _cut(monkeypatch, "dmfb_flagship_qmix", ((7, 10),))
+    a = ttq.parse(_recipe(tmp_path, "dmfb_flagship_qmix", "--score_board=6"))
+    scores = ttq.score(a)
+    entry = ttq.write(a, scores)
+    tags = ["0_0", "0_1", "0_2", "0_final"]
+    named = ("--chip_size", "--evaluate_task", "--load_model_name")
+    assert [[x for x in c if x.startswith(named)] for c in calls] == [
+        ["--chip_size=7", "--evaluate_task=10", f"--load_model_name={t}"]
+        for t in tags]
+    readings = [c["success_7x7"] for c in entry["checkpoints"]]
+    assert readings == [scores[ttq.board_key(t, 7, 10)] for t in tags]
+    assert all(ttq.board_key(t, 7, 20) in scores for t in tags)
+    assert all(abs(x * 10 - round(x * 10)) < 1e-6 for x in readings)
+    assert entry["n_tasks"] == {"success_50x50": 100, "success_7x7": 10}
+    assert "success_5x5" not in entry["checkpoints"][0]
 
 
 def test_bf16_recipe_scores_float32_master_weights(recipe_runs):
@@ -745,10 +846,12 @@ def test_committed_recipe_entries(recipe):
     cycle = 100000 if recipe.startswith("seedfarm") else 50000
     assert [c["env_steps"] for c in rows[:n - 1]] == [
         i * cycle for i in range(min(len(rows), n - 1))]
+    others = {f"success_{b}x{b}": [c[f"success_{b}x{b}"] for c in rows]
+              for b, _ in r.boards}
     folded = ttq.fold([c[r.success] for c in rows],
                       [c["wall_s"] for c in rows], cycle=cycle,
                       total_steps=2_000_000 if r.board else 600_000,
-                      key=r.success, ended=ended)
+                      key=r.success, ended=ended, others=others)
     assert entry["checkpoints"] == folded["checkpoints"]
     first = entry["first_crossing"]
     strip = (lambda c: c if c is None else
@@ -758,6 +861,52 @@ def test_committed_recipe_entries(recipe):
     if recipe.startswith("seedfarm"):
         assert entry["seeds"] == list(range(12, 20))
         assert {len(c["success"]) for c in rows} == {8}
+    if r.boards:
+        assert entry["n_tasks"] == {r.success: ttq.N_TASKS, **{
+            f"success_{b}x{b}": n for b, n in r.boards}}
+
+
+# the runs trained unbroken from scratch in one call, three at once, each
+# with every checkpoint on 10x10 and 20x20: (recipe entry, nested key, seed)
+CROSS_BOARD_RUNS = [("dmfb_flagship_qmix", None, 12),
+                    ("dmfb_flagship_qmix", "seed_1_replication", 1),
+                    ("", "seed_12_control", 12)]
+
+
+@pytest.mark.parametrize("where,key,seed", CROSS_BOARD_RUNS,
+                         ids=["qmix_s12", "qmix_s1", "vdn_control_s12"])
+def test_committed_cross_board_runs(where, key, seed):
+    """Two QMIX seeds and a VDN control of the flagship recipe, trained
+    from scratch without a resume on one card at once: every checkpoint
+    scored on 50x50 (100 tasks) and on 10x10 and 20x20 (500 tasks each),
+    the same checkpoints for all three, each the fold of its readings."""
+    with open(PORT_ARTIFACT) as f:
+        data = json.load(f)
+    entry = data[where] if where else data
+    entry = entry[key] if key else entry
+    recipe = "dmfb_flagship_qmix" if where else "flagship"
+    r = ttq.RECIPES[recipe]
+    assert " ".join(r.flags + [f"--seed={seed}"]) in entry["description"]
+    assert "H100" in entry["card"] and " W" in entry["card"]
+    assert "resumed_at" not in entry and "resumed" not in entry[
+        "description"]
+    rows = entry["checkpoints"]
+    assert [c["tag"] for c in rows] == [str(i) for i in range(len(rows))]
+    assert len(rows) >= 20
+    assert entry["n_tasks"] == {"success_50x50": 100, "success_10x10": 500,
+                                "success_20x20": 500}
+    for c in rows:   # a whole number of tasks each
+        for k, n in entry["n_tasks"].items():
+            assert abs(c[k] * n - round(c[k] * n)) < 1e-6, (c, k)
+    others = {k: [c[k] for c in rows] for k in ("success_10x10",
+                                                 "success_20x20")}
+    folded = ttq.fold([c["success_50x50"] for c in rows],
+                      [c["wall_s"] for c in rows], ended=False,
+                      others=others)
+    assert rows == folded["checkpoints"]
+    assert entry["total_run"] == dict(
+        folded["total_run"], success_10x10_newest=rows[-1]["success_10x10"],
+        success_20x20_newest=rows[-1]["success_20x20"])
 
 
 def test_seeds_tool_runs_each_recipe_and_packs_a_farm(recipe_runs,
@@ -768,9 +917,10 @@ def test_seeds_tool_runs_each_recipe_and_packs_a_farm(recipe_runs,
     newest resume checkpoint, from which the tool reads the same curves
     and the train CLI's ``--load_model`` carries the farm to its end."""
     seeds = _seeds_tool()
-    a = seeds.parse(["--recipe", "dmfb_flagship_qmix", "seedfarm_10x10_2d",
-                     "--seeds", "12", "--budget=10", f"--out={tmp_path}"])
-    assert a.recipe == ["dmfb_flagship_qmix", "seedfarm_10x10_2d"]
+    a = seeds.parse(["--runs", "dmfb_flagship_qmix:12", "seedfarm_10x10_2d:12",
+                     "--budget=10", f"--out={tmp_path}"])
+    assert seeds.runs(a) == [("dmfb_flagship_qmix", 12, "default"),
+                             ("seedfarm_10x10_2d", 12, "default")]
     assert seeds.tool_argv(a, "seedfarm_10x10_2d", 12)[2:4] == [
         "--recipe=seedfarm_10x10_2d", "--seed=12"]
     src, _, _ = recipe_runs
@@ -845,3 +995,28 @@ def test_recipe_exports_load_strictly(name):
             assert torch.equal(live[part][k], v), (part, k)
     m = trainer.evaluate()
     assert 0.0 <= m["success_rate"] <= 1.0
+
+
+def test_ring_size_tool_counts_the_qmix_ring():
+    """``tools/ring_size_torch.py`` counts the DMFB QMIX flagship's ring
+    field by field as ``replay.init_replay`` lays it out (5000 episodes,
+    T = 80, 4 agents of 245 int8 observation values, a state of 1200 int8
+    values), without allocating it, and packs a ring filled with a
+    rollout of the committed QMIX export."""
+    spec = importlib.util.spec_from_file_location(
+        "ring_size_torch", ROOT / "tools" / "ring_size_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    line = tool.main([
+        "--policy", str(PORT_POLICY.parent / "dmfb_20x20_4d_fov9_qmix_torch"),
+        "--episodes", "8", "--", "dmfb", "--drop_num=4", "--fov=9",
+        "--chip_size=20", "--alg=qmix", "--n_parallel_envs=8"])
+    S, T, N = 5000, 80, 4
+    assert line["bytes_by_field"] == {
+        "o_ext": S * (T + 1) * N * 245, "u": S * T * N, "r": S * T * 4,
+        "padded": S * T, "terminated": S * T, "s_ext": S * (T + 1) * 1200}
+    assert line["bytes"] == sum(line["bytes_by_field"].values())
+    assert 1 <= line["mean_episode_steps"] <= T
+    # the filled rows are saved whole, and gzip packs their zero padding
+    assert line["filled_saved_bytes"] > 8 * (T + 1) * (N * 245 + 1200)
+    assert 0 < line["filled_gzip_bytes"] < line["filled_saved_bytes"]

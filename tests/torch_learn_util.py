@@ -239,12 +239,13 @@ def composed(items=(), cycles=2, K=2, data_dir=None):
     With ``data_dir`` (where JAX's ``Trainer`` makes its directories) the
     cycles carry the trainers' schedules: epsilon starts at ``epsilon`` and
     anneals by each package's ``Trainer.anneal_per_step``, carried from
-    cycle to cycle (held equal exactly), and under ``--param_ema`` each
-    package's EMA step (JAX's ``Trainer._ema_step``, the port's
-    ``trainer.ema_update`` at ``Trainer.cycle_decay``) follows each cycle,
-    the EMA params held as the params are.  Else epsilon is 0.6 with an
-    anneal of 0.002 a step, anew each cycle.  Returns the two rings, the
-    port's learner and the last epsilon."""
+    cycle to cycle (held equal exactly), the port's learner is its
+    ``Trainer``'s own, and under ``--param_ema`` each trainer's EMA step
+    (JAX's ``Trainer._ema_step``, the port's ``Trainer.ema_step``) follows
+    each cycle, the EMA params (the agent's and a QMIX mixer's, the
+    trainer's own and its checkpoint's) held as the params are.  Else
+    epsilon is 0.6 with an anneal of 0.002 a step, anew each cycle.
+    Returns the two rings, the port's learner and the last epsilon."""
     from marl_dmfb_tpu import replay as jreplay
     from marl_dmfb_tpu import trainer as jtrainer
     from marl_dmfb_tpu.rollout import make_rollout as jmake_rollout
@@ -282,11 +283,15 @@ def composed(items=(), cycles=2, K=2, data_dir=None):
         assert np.float32(tt.epsilon) == eps
         assert np.float32(tt.anneal_per_step) == anneal
         t_eps, t_anneal = tt.epsilon, tt.anneal_per_step
+        # the port's side is the trainer's own learner and EMA, from JAX's
+        # state: its EMA starts at the params, as both trainers' do
+        port = tt.learner
+        port.load_state(from_flax_learner_state(
+            jax.tree.map(np.asarray, jst)))
         if ja.param_ema:
             jema = jst.params
-            live = ttrainer._named(port.net, port.mixer)
-            tema = {part: {k: v.detach().clone() for k, v in d.items()}
-                    for part, d in live.items()}
+            tema = ttrainer._named(tt.ema_net, tt.ema_mixer)
+            ttrainer._copy(tema, ttrainer._named(tt.net, tt.mixer))
             assert np.float32(jt._ema_step(1.0, 0.0)) == np.float32(
                 tt.cycle_decay)
     noisy = {k: np.zeros(v.shape, bool) for k, v in port.all_params.items()}
@@ -347,7 +352,12 @@ def composed(items=(), cycles=2, K=2, data_dir=None):
                             ja.lr, updates, f"cycle {cycle}: target ")
         if jema is not None:
             jema = jt._ema_step(jema, jst.params)
-            ttrainer.ema_update(tema, live, tt.cycle_decay)
+            tt.ema_step()
+            # every EMA tensor of JAX's (the mixer's under QMIX) is the
+            # trainer's, and its checkpoint tree holds them all
+            assert agent_np(jema).keys() == flat_names(tema).keys()
+            assert flat_names(tt._tree()["ema"]).keys() == flat_names(
+                tema).keys()
             assert_params_close(agent_np(jema), flat_names(tema), noisy,
                                 ja.lr, updates, f"cycle {cycle}: EMA ")
         states = jres.env_states

@@ -3,11 +3,16 @@
 recipes trained at once on one device within a time limit, folded into one
 artifact, and packed to resume elsewhere.
 
-    python3 tools/time_to_quality_seeds.py --recipe meda_30x60_3d \\
-        --seeds 12 1 --budget 3300 --out build/ttq_out
-    python3 tools/time_to_quality_seeds.py --recipe dmfb_flagship_qmix \\
-        dmfb_flagship_bf16 seedfarm_10x10_2d --seeds 12 --budget 3300 \\
+    python3 tools/time_to_quality_seeds.py --runs meda_30x60_3d:12 \\
+        meda_30x60_3d:1 --budget 3300 --out build/ttq_out
+    python3 tools/time_to_quality_seeds.py --runs dmfb_flagship_qmix:12 \\
+        dmfb_flagship_qmix:1 flagship:12:seed_12_control --budget 2950 \\
         --out build/ttq_out
+
+``--runs`` names the runs (default: the flagship at seeds 12 and 1), each
+``<recipe>:<seed>`` or ``<recipe>:<seed>:<key>``: the key under which the
+run is folded; by default a recipe's first run is its entry and the
+others nest in it as ``seed_<s>_replication``.
 
 1. **train**: one ``time_to_quality_torch.py`` process a recipe and seed
    on the run directory ``build/ttq/<recipe>_s<seed>/`` (it resumes a run
@@ -19,10 +24,11 @@ artifact, and packed to resume elsewhere.
    failed, makes the command exit 1, after the fold and the pack.  A process whose run
    ends within the budget also folds it, into
    ``<out>/<recipe>_s<seed>.json``.
-2. **fold**: each recipe and seed in turn, ``--no_train``, into
-   ``<out>/time_to_quality.json``, which starts as a copy of the port's
-   committed artifact: the first seed as the recipe's entry, the others
-   nested in it as ``seed_<s>_replication``.
+2. **fold**: every run scored at once, a ``--no_train`` process each
+   (its scores kept in its run directory), then each in turn, ``--no_train``
+   again (nothing left to score), into ``<out>/time_to_quality.json``,
+   which starts as a copy of the port's committed artifact, under its
+   key.
 3. **pack**: each run directory into ``<out>/<recipe>_s<seed>/``: its
    curves, ``scores.json``, the deploy export, and of each of its runs the
    checkpoint it resumes from and the final one (what
@@ -55,8 +61,9 @@ RUNS = os.path.join(ROOT, "build", "ttq")
 
 def parse(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--recipe", nargs="+", default=["flagship"])
-    p.add_argument("--seeds", type=int, nargs="+", default=[12, 1])
+    p.add_argument("--runs", nargs="+", default=["flagship:12",
+                                                 "flagship:1"],
+                   metavar="RECIPE:SEED[:KEY]")
     p.add_argument("--budget", type=float, required=True,
                    help="seconds after which a training process is "
                         "ended")
@@ -73,9 +80,15 @@ def tool_argv(a, recipe: str, seed: int, *flags) -> list:
             f"--device={a.device}", *flags, "--extra", *a.extra]
 
 
-def key(a, seed: int) -> str:
-    return ("default" if seed == a.seeds[0]
-            else f"seed_{seed}_replication")
+def runs(a) -> list:
+    """``(recipe, seed, key)`` of each run (module docstring)."""
+    out = []
+    for spec in a.runs:
+        recipe, seed, *named = spec.split(":")
+        first = all(r != recipe for r, _, _ in out)
+        out.append((recipe, int(seed), named[0] if named else (
+            "default" if first else f"seed_{seed}_replication")))
+    return out
 
 
 def pack(t, dest: str):
@@ -105,13 +118,14 @@ def pack(t, dest: str):
 
 def wait(procs, deadline: float) -> list:
     """The end of step 1 (module docstring): waits for each ``(name,
-    process)`` until ``deadline`` (``time.monotonic``), ends those still
-    running then, and returns the names whose process exited otherwise
-    than 0 on its own."""
+    process)`` until ``deadline`` (``time.monotonic``; None: no limit),
+    ends those still running then, and returns the names whose process
+    exited otherwise than 0 on its own."""
     failed = []
     for name, proc in procs:
         try:
-            rc = proc.wait(timeout=max(deadline - time.monotonic(), 0.0))
+            rc = proc.wait(timeout=None if deadline is None else
+                           max(deadline - time.monotonic(), 0.0))
             failed += [name] if rc else []
             how = f"exit {rc}"
         except subprocess.TimeoutExpired:
@@ -126,31 +140,37 @@ def main(argv=None) -> int:
     a = parse(argv)
     os.makedirs(a.out, exist_ok=True)
     deadline = time.monotonic() + a.budget
-    runs = [(recipe, seed) for recipe in a.recipe for seed in a.seeds]
-    procs, logs = [], []
-    for recipe, seed in runs:
+    todo = runs(a)
+
+    def start(recipe, seed, *flags):
         name = f"{recipe}_s{seed}"
-        logs.append(open(os.path.join(a.out, f"{name}.log"), "a"))
-        procs.append((name, subprocess.Popen(
+        log = open(os.path.join(a.out, f"{name}.log"), "a")
+        proc = subprocess.Popen(
             tool_argv(a, recipe, seed,
-                      f"--out={os.path.join(a.out, name + '.json')}"),
-            stdout=logs[-1], stderr=subprocess.STDOUT, cwd=ROOT)))
-    failed = wait(procs, deadline)
-    for log in logs:
+                      f"--out={os.path.join(a.out, name + '.json')}",
+                      *flags),
+            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
         log.close()
+        return name, proc
+
+    failed = wait([start(recipe, seed) for recipe, seed, _ in todo],
+                  deadline)
     out = os.path.join(a.out, "time_to_quality.json")
     try:
+        # the scores at once (each run's own artifact), then the fold
+        scoring = [start(recipe, seed, "--no_train")
+                   for recipe, seed, _ in todo]
+        failed += [n for n in wait(scoring, None) if n not in failed]
         shutil.copy2(ARTIFACT, out)
-        for recipe, seed in runs:
+        for recipe, seed, k in todo:
             name = f"{recipe}_s{seed}"
             if subprocess.run(tool_argv(a, recipe, seed, "--no_train",
-                                        f"--out={out}",
-                                        f"--key={key(a, seed)}"),
+                                        f"--out={out}", f"--key={k}"),
                               cwd=ROOT).returncode and name not in failed:
                 failed.append(name)
     finally:
         # what the runs reached is packed even where the fold failed
-        for recipe, seed in runs:
+        for recipe, seed, _ in todo:
             packed = os.path.join(a.out, f"{recipe}_s{seed}")
             shutil.rmtree(packed, ignore_errors=True)
             pack(ttq.parse(tool_argv(a, recipe, seed)[2:]), packed)

@@ -17,10 +17,11 @@ algorithm, the dtype, the farm and the mesh among them), its entry in the
 artifact under JAX's name:
 
 * ``flagship`` (the default; JAX's top-level entry), DMFB 20x20 with 4
-  droplets, every checkpoint scored on the 50x50 zero-shot board;
+  droplets, every checkpoint scored on the 50x50 zero-shot board (100
+  tasks) and on 10x10 and 20x20 (500 tasks each, :data:`CROSS_BOARDS`);
   ``dmfb_flagship_qmix`` the same with ``--alg=qmix`` (scored by
-  ``evaluate --alg=qmix``: the agent, a fresh mixer on another board; the
-  newest checkpoint also on 20x20 and 10x10), ``dmfb_flagship_bf16`` with
+  ``evaluate --alg=qmix``: the agent, a fresh mixer on another board),
+  ``dmfb_flagship_bf16`` with
   ``--compute_dtype=bf16`` (scored on the float32 path on the float32
   master weights, as JAX scored its run);
 * online recipes, every checkpoint's success the trainer's online
@@ -61,8 +62,13 @@ result, so that running the command again carries on where it stopped:
    board, 100 tasks, as ``total_run.independent_final``.  The newest
    checkpoint is also scored on each of the recipe's final boards
    (``success_<b>x<b>_final``, or ``_newest`` before the end;
-   ``independent_final_<b>x<b>`` of an online recipe).  Each score is
-   kept in ``scores.json`` as it comes.
+   ``independent_final_<b>x<b>`` of an online recipe), and every
+   checkpoint of a scored recipe on each of its ``boards``, over that
+   board's number of tasks (``success_<b>x<b>`` beside the checkpoint's
+   success, the newest's also in ``total_run``; the entry's ``n_tasks``
+   names each key's tasks).  Each score is kept in ``scores.json`` as it
+   comes, under its board and number of tasks, so that a reading over
+   other tasks is never taken for one over the recipe's.
 3. **fold**: the checkpoints (``tag``, ``env_steps``, ``wall_s`` and the
    recipe's success key), ``first_crossing`` (the first with success at
    least :data:`QUALITY_BAR`, else null; marked ``after_resume_at`` where
@@ -109,20 +115,25 @@ class Recipe(NamedTuple):
     online: bool     # success from the trainer's online evaluation
     board: int = None         # every checkpoint scored on it (not online)
     final_boards: tuple = ()  # the newest checkpoint also scored on these
+    boards: tuple = ()        # (board, tasks): every checkpoint also on it
 
 
 FLAGSHIP = ["dmfb", "--drop_num=4", "--fov=9", "--chip_size=20",
             "--n_parallel_envs=64", "--lr_decay", "--param_ema=0.999",
             "--evaluate_cycle=50000"]
+# the flagships' other boards: the training board and the smaller one, 500
+# tasks each (a binomial sigma of about 0.02 at 0.8)
+CROSS_BOARDS = ((10, 500), (20, 500))
 RECIPES = {
-    "flagship": Recipe(FLAGSHIP, "", "success_50x50", False, 50),
+    "flagship": Recipe(FLAGSHIP, "", "success_50x50", False, 50, (),
+                       CROSS_BOARDS),
     "meda_30x60_3d": Recipe(
         ["meda", "--drop_num=3", "--n_parallel_envs=64", "--lr_decay",
          "--param_ema=0.999", "--evaluate_cycle=50000"],
         "meda_30x60_3d", "success", True),
     "dmfb_flagship_qmix": Recipe(FLAGSHIP + ["--alg=qmix"],
                                  "dmfb_flagship_qmix", "success_50x50",
-                                 False, 50, (20, 10)),
+                                 False, 50, (), CROSS_BOARDS),
     "dmfb_flagship_bf16": Recipe(FLAGSHIP + ["--compute_dtype=bf16"],
                                  "dmfb_flagship_bf16", "success_50x50",
                                  False, 50),
@@ -343,9 +354,9 @@ def checkpoint_list(a) -> tuple:
     return rows, resumed
 
 
-def _evaluate(a, t, name: str, board=None) -> dict:
+def _evaluate(a, t, name: str, board=None, tasks: int = N_TASKS) -> dict:
     """The evaluate entry point on checkpoint ``name`` of the run
-    directory: greedy, :data:`N_TASKS` tasks, float32 (the checkpoints hold
+    directory: greedy, ``tasks`` tasks, float32 (the checkpoints hold
     float32 params under every ``--compute_dtype``), on ``board`` (square)
     or the training board, as the training's algorithm (a farm seed's
     checkpoint ``<i>_<tag>`` is its run ``i``'s)."""
@@ -356,7 +367,7 @@ def _evaluate(a, t, name: str, board=None) -> dict:
     return evaluate.main([t.name, f"--drop_num={t.drop_num}",
                           f"--fov={t.fov}", *where, *version,
                           f"--alg={t.alg}",
-                          f"--evaluate_task={N_TASKS}",
+                          f"--evaluate_task={tasks}",
                           f"--data_dir={a.run_dir}",
                           f"--load_model_name={name}",
                           f"--device={a.device}"])
@@ -368,12 +379,19 @@ def _independent(m: dict, tag: str) -> dict:
             "success": round(float(m["success_rate"]), 2)}
 
 
+def board_key(name: str, board: int, tasks: int = N_TASKS) -> str:
+    """The key in ``scores.json`` of checkpoint ``name`` on the square
+    ``board`` over ``tasks`` tasks."""
+    return f"{name} {board}x{board}@{tasks}"
+
+
 def score(a) -> dict:
     """Step 2 (module docstring): ``{"<run>_<tag>": success}`` of the
     scored recipes' checkpoints, or of an online recipe's newest checkpoint
     ``{"<run>_<tag>": {"tag", "n_tasks", "steps", "success"}}`` (a seed
     farm's: one a seed, ``"<i>_<tag>"``); the newest checkpoint on each of
-    the recipe's final boards under ``"<name> <b>x<b>"``."""
+    the recipe's final boards, and every checkpoint on each of its
+    ``boards`` (to three decimals), under :func:`board_key`."""
     path = os.path.join(a.run_dir, "scores.json")
     scores = {}
     if os.path.isfile(path):
@@ -381,7 +399,8 @@ def score(a) -> dict:
             scores = json.load(f)
     t = _args(a)
     rows = checkpoint_list(a)[0]
-    online = RECIPES[a.recipe].online
+    recipe = RECIPES[a.recipe]
+    online = recipe.online
 
     def keep(name, value):
         scores[name] = value
@@ -402,11 +421,16 @@ def score(a) -> dict:
             m = _evaluate(a, t, name, None if online else a.score_board)
             keep(name, _independent(m, tag) if online else
                  round(float(m["success_rate"]), 2))
-        for board in RECIPES[a.recipe].final_boards if newest else ():
-            if f"{name} {board}x{board}" not in scores:
+        for board in recipe.final_boards if newest else ():
+            if board_key(name, board) not in scores:
                 m = _evaluate(a, t, name, board)
-                keep(f"{name} {board}x{board}", _independent(m, tag)
+                keep(board_key(name, board), _independent(m, tag)
                      if online else round(float(m["success_rate"]), 2))
+        for board, tasks in recipe.boards:
+            if board_key(name, board, tasks) not in scores:
+                m = _evaluate(a, t, name, board, tasks)
+                keep(board_key(name, board, tasks),
+                     round(float(m["success_rate"]), 3))
     return scores
 
 
@@ -414,7 +438,7 @@ def fold(success: list, wall_s: list, first_tag: int = 0,
          cycle: int = 50000, total_steps: int = 2_000_000,
          bar: float = QUALITY_BAR,
          key: str = RECIPES["flagship"].success,
-         ended: bool = True) -> dict:
+         ended: bool = True, others: dict = None) -> dict:
     """The checkpoints, ``first_crossing``, ``quality_bar`` and
     ``total_run`` of an artifact entry in JAX's layout, from one success
     rate and one wall time a checkpoint: tags ``first_tag``, ``first_tag +
@@ -422,10 +446,14 @@ def fold(success: list, wall_s: list, first_tag: int = 0,
     at ``total_steps`` (``tools/scratch_ttq_meda.py``'s fold), or, where
     the run has not ``ended``, its newest, and ``total_run`` how far it
     reached.  A success rate that is a list (a seed farm's, a seed each)
-    gives a list of first crossings, a seed each."""
+    gives a list of first crossings, a seed each.  ``others``: more
+    readings of each checkpoint, ``{key: one a checkpoint}``, such as its
+    success on other boards."""
+    others = others or {}
     checkpoints = [{"tag": str(first_tag + i),
                     "env_steps": (first_tag + i) * cycle,
-                    "wall_s": w, key: s}
+                    "wall_s": w, key: s,
+                    **{k: v[i] for k, v in others.items()}}
                    for i, (s, w) in enumerate(zip(success, wall_s))]
     last = checkpoints[-1]
     if ended:
@@ -459,6 +487,8 @@ def describe(a, device: str, resumed) -> str:
     board = f"{args.width}x{args.length}"
     also = "".join(f"; the newest checkpoint also on {b}x{b}, {N_TASKS} "
                    "tasks" for b in recipe.final_boards)
+    also += "".join(f"; every checkpoint also on {b}x{b}, {n} tasks "
+                    f"(success_{b}x{b})" for b, n in recipe.boards)
     evaluate = (f"python -m marl_dmfb_tpu_torch.evaluate {args.name} "
                 f"--drop_num={args.drop_num} --alg={args.alg}")
     if is_farm(a):
@@ -519,12 +549,17 @@ def write(a, scores: dict) -> dict:
     args = _args(a)
     device = card(a.device)
     newest = rows[-1][0]
+    others = {f"success_{b}x{b}": [scores[board_key(row[0], b, n)]
+                                   for row in rows] for b, n in recipe.boards}
     entry = {"description": describe(a, device, resumed), "card": device,
              **fold([row[2] if recipe.online else scores[row[0]]
                      for row in rows],
                     [wall for _, wall, _ in rows], cycle=args.evaluate_cycle,
                     total_steps=args.total_env_steps, key=recipe.success,
-                    ended=ended)}
+                    ended=ended, others=others)}
+    if recipe.boards:
+        entry["n_tasks"] = {recipe.success: N_TASKS, **{
+            f"success_{b}x{b}": n for b, n in recipe.boards}}
     run_ = entry["total_run"]
     if farm:
         entry["seeds"] = list(range(a.seed, a.seed + args.vmap_seeds))
@@ -532,10 +567,11 @@ def write(a, scores: dict) -> dict:
                                      for i in range(args.vmap_seeds)]
     elif recipe.online:
         run_["independent_final"] = scores[newest]
-    for b in recipe.final_boards:
+    for b, n in (tuple((b, N_TASKS) for b in recipe.final_boards)
+                 + recipe.boards):
         run_[f"independent_final_{b}x{b}" if recipe.online else
              f"success_{b}x{b}_{'final' if ended else 'newest'}"] = scores[
-                 f"{newest} {b}x{b}"]
+                 board_key(newest, b, n)]
     first = entry["first_crossing"]
     behind = [r["tag"] for r in resumed
               if first is not None and r["env_steps"] < first["env_steps"]]
