@@ -1,0 +1,17 @@
+"""Learner: host ms of an update's gradients (`torch.autograd.grad`), a call
+of the program's own span `learn.backward`
+(marl_dmfb_tpu_torch/utils/tracing.py), over the traced cycles. Read under
+the profiler, which slows the host."""
+
+
+def read(ctx):
+    if ctx.get("trace") is None:
+        return None
+    try:
+        from marl_dmfb_tpu_torch.utils import tracing
+    except ImportError:   # a program without spans of its own
+        return None
+    s = tracing.summary()["spans"].get("learn.backward")
+    if not s or not s["calls"]:
+        return None
+    return s["host_ms"] / s["calls"]

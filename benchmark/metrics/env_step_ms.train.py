@@ -1,0 +1,17 @@
+"""Env step: host ms of a rollout step's env step (the move-success draws and
+`env.step_core`), a call of the program's own span `rollout.env_step`
+(marl_dmfb_tpu_torch/utils/tracing.py), over the traced cycles. Read under
+the profiler, which slows the host."""
+
+
+def read(ctx):
+    if ctx.get("trace") is None:
+        return None
+    try:
+        from marl_dmfb_tpu_torch.utils import tracing
+    except ImportError:   # a program without spans of its own
+        return None
+    s = tracing.summary()["spans"].get("rollout.env_step")
+    if not s or not s["calls"]:
+        return None
+    return s["host_ms"] / s["calls"]

@@ -46,8 +46,15 @@ update waits for the device.
 The loss is a module, :class:`TDLoss`, over the eval and target nets;
 :func:`functional_loss` calls it on any parameter dicts, which is how the
 seed farm's :class:`StackedQLearner` takes the loss and gradients of S
-seeds' stacked parameters at once (``torch.func.vmap`` of
-``grad_and_value``; JAX ``seedfarm.py`` vmaps ``learn``).
+seeds' stacked parameters at once (``torch.func.vjp`` of its
+``torch.func.vmap``; JAX ``seedfarm.py`` vmaps ``learn``).
+
+An update's spans (``utils/tracing.py``), inside ``learn_many``'s:
+``learn.sample`` (the minibatch's gather), ``learn.forward`` (both
+unrolls and the TD loss), ``learn.backward`` (the gradients, and under a
+mesh their ``all_reduce``) and ``learn.optim`` (the clip, the optimizer
+step, the target sync); the counter ``learn.rows`` adds each minibatch's
+(episode, step, agent) rows.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from marl_dmfb_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
                                                replicate)
 from marl_dmfb_tpu_torch.replay import (ReplayState, sample, sample_local,
                                         sample_stacked)
+from marl_dmfb_tpu_torch.utils import tracing
 from marl_dmfb_tpu_torch.utils.platform import disable_tf32
 
 ADAM_BETAS = (0.9, 0.99)   # JAX qlearn.py:78 (reference vdn.py:67-68)
@@ -274,6 +282,12 @@ def _flat(tree: dict) -> dict:
             for part, d in tree.items() for name, v in d.items()}
 
 
+def _rows(batch: dict) -> int:
+    """The minibatch's rows, (episode, step, agent) triples of ``o_ext``
+    (a seed axis first multiplies them)."""
+    return math.prod(batch["o_ext"].shape[:-1])
+
+
 def _one_hot(u: torch.Tensor, n: int) -> torch.Tensor:
     """``F.one_hot(u, n).float()`` by comparison: ``F.one_hot`` reads the
     values' range, which ``torch.func.vmap`` cannot batch."""
@@ -447,20 +461,24 @@ class QLearner:
         rank's share."""
         params = list(self.all_params.values())
         if self.mesh is None:
-            loss = self.loss(batch)
-            return loss, dict(zip(self.all_params,
-                                  torch.autograd.grad(loss, params)))
-        squares, mask_sum = self.loss_module.td_sums(batch)
-        grads = torch.autograd.grad(squares, params)
-        flat = all_reduce_sum(self.mesh, torch.cat(
-            [g.reshape(-1) for g in grads]
-            + [squares.detach().reshape(1), mask_sum.reshape(1)]))
-        total = flat[-1]
-        out, at = {}, 0
-        for k, g in zip(self.all_params, grads):
-            out[k] = flat[at:at + g.numel()].view_as(g) / total
-            at += g.numel()
-        return flat[-2] / total, out
+            with tracing.span("learn.forward"):
+                loss = self.loss(batch)
+            with tracing.span("learn.backward"):
+                return loss, dict(zip(self.all_params,
+                                      torch.autograd.grad(loss, params)))
+        with tracing.span("learn.forward"):
+            squares, mask_sum = self.loss_module.td_sums(batch)
+        with tracing.span("learn.backward"):
+            grads = torch.autograd.grad(squares, params)
+            flat = all_reduce_sum(self.mesh, torch.cat(
+                [g.reshape(-1) for g in grads]
+                + [squares.detach().reshape(1), mask_sum.reshape(1)]))
+            total = flat[-1]
+            out, at = {}, 0
+            for k, g in zip(self.all_params, grads):
+                out[k] = flat[at:at + g.numel()].view_as(g) / total
+                at += g.numel()
+            return flat[-2] / total, out
 
     def update(self, batch: dict) -> torch.Tensor:
         """One step on ``batch``; the target nets take the eval nets'
@@ -468,14 +486,16 @@ class QLearner:
         ``target_update_cycle`` (JAX qlearn.py:275-294).  Returns the loss
         before the step."""
         loss, grads = self.loss_and_grads(batch)
-        self.opt_state = self.opt.step(self.all_params, grads,
-                                       self.opt_state)
-        self.train_step += 1
-        if self.train_step % self.args.target_update_cycle == 0:
-            with torch.no_grad():
-                for live, target in self._pairs():
-                    for t, p in zip(target.parameters(), live.parameters()):
-                        t.copy_(p)
+        with tracing.span("learn.optim"):
+            self.opt_state = self.opt.step(self.all_params, grads,
+                                           self.opt_state)
+            self.train_step += 1
+            if self.train_step % self.args.target_update_cycle == 0:
+                with torch.no_grad():
+                    for live, target in self._pairs():
+                        for t, p in zip(target.parameters(),
+                                        live.parameters()):
+                            t.copy_(p)
         return loss.detach()
 
     def learn_many(self, replay: ReplayState, n_updates: int,
@@ -492,21 +512,25 @@ class QLearner:
         plus its rank (JAX folds the device index into the key), and
         ``idx`` ``(n_updates, batch_size / n)`` holds this rank's; else
         ``idx`` holds the whole minibatch's, as on one device."""
-        local = self.mesh is not None and self.args.local_sampling
-        b = self.args.batch_size
-        if local and idx is None:
-            device = replay.data["u"].device
-            seed = int(torch.randint(0, 2 ** 62, (), generator=generator,
-                                     device=device))
-            generator = torch.Generator(device=device).manual_seed(
-                seed + self.mesh.rank)
-        losses = []
-        for k in range(n_updates):
-            i = None if idx is None else idx[k]
-            batch = (sample_local(replay, b, self.mesh, generator, i)
-                     if local else sample(replay, b, generator, i, self.mesh))
-            losses.append(self.update(batch))
-        return torch.stack(losses).mean()
+        with tracing.span("learn_many"):
+            local = self.mesh is not None and self.args.local_sampling
+            b = self.args.batch_size
+            if local and idx is None:
+                device = replay.data["u"].device
+                seed = int(torch.randint(0, 2 ** 62, (), generator=generator,
+                                         device=device))
+                generator = torch.Generator(device=device).manual_seed(
+                    seed + self.mesh.rank)
+            losses = []
+            for k in range(n_updates):
+                i = None if idx is None else idx[k]
+                with tracing.span("learn.sample"):
+                    batch = (sample_local(replay, b, self.mesh, generator, i)
+                             if local else
+                             sample(replay, b, generator, i, self.mesh))
+                tracing.count("learn.rows", _rows(batch))
+                losses.append(self.update(batch))
+            return torch.stack(losses).mean()
 
     # ------------------------------------------------------------------
     def _named(self, target: bool = False) -> dict:
@@ -551,9 +575,9 @@ class StackedQLearner:
 
     ``params`` holds every seed's parameters stacked on a first axis of S,
     in :attr:`QLearner.all_params`' flat names.  An update takes the loss
-    and gradients of all seeds at once, ``torch.func.vmap`` of
-    ``torch.func.grad_and_value`` of :func:`functional_loss` over the
-    stacked parameters and S minibatches, so it launches about as many
+    and gradients of all seeds at once, ``torch.func.vjp`` of the
+    ``torch.func.vmap`` of :func:`functional_loss` over the stacked
+    parameters and S minibatches, so it launches about as many
     kernels as one seed's update; the optimizer clips each seed by its own
     global norm (``Optimizer.step(stacked=True)``).  The template modules
     ``net`` and ``mixer`` give the loss its structure only (their GRU cells
@@ -578,8 +602,7 @@ class StackedQLearner:
         self.opt = make_optimizer(args)
         self.opt_state = self.opt.init(params)
         self.train_step = 0
-        self._grad_and_loss = torch.func.vmap(torch.func.grad_and_value(
-            functional_loss(self.loss_module)))
+        self._losses = torch.func.vmap(functional_loss(self.loss_module))
 
     def agent_params(self, tree: Optional[dict] = None) -> dict:
         """The agent's entries of ``tree`` (default :attr:`params`)."""
@@ -588,9 +611,15 @@ class StackedQLearner:
 
     def loss_and_grads(self, batch: dict):
         """Each seed's loss (S,) and gradients on its minibatch (each leaf
-        of ``batch`` is (S, b, ...))."""
-        grads, loss = self._grad_and_loss(self.params, self.target_params,
-                                          batch)
+        of ``batch`` is (S, b, ...)): the vector-Jacobian product of the
+        seeds' losses with ones, as the seeds' losses depend each on its
+        own parameters alone."""
+        with tracing.span("learn.forward"):
+            loss, backward = torch.func.vjp(
+                lambda p: self._losses(p, self.target_params, batch),
+                self.params)
+        with tracing.span("learn.backward"):
+            (grads,) = backward(torch.ones_like(loss))
         return loss, grads
 
     def update(self, batch: dict) -> torch.Tensor:
@@ -598,13 +627,14 @@ class StackedQLearner:
         sync as :meth:`QLearner.update`'s; returns the losses (S,) before
         the step."""
         loss, grads = self.loss_and_grads(batch)
-        self.opt_state = self.opt.step(self.params, grads, self.opt_state,
-                                       stacked=True)
-        self.train_step += 1
-        if self.train_step % self.args.target_update_cycle == 0:
-            with torch.no_grad():
-                for k, v in self.params.items():
-                    self.target_params[k].copy_(v)
+        with tracing.span("learn.optim"):
+            self.opt_state = self.opt.step(self.params, grads,
+                                           self.opt_state, stacked=True)
+            self.train_step += 1
+            if self.train_step % self.args.target_update_cycle == 0:
+                with torch.no_grad():
+                    for k, v in self.params.items():
+                        self.target_params[k].copy_(v)
         return loss.detach()
 
     def learn_many(self, replay: ReplayState, n_updates: int,
@@ -615,18 +645,23 @@ class StackedQLearner:
         seed i draws its minibatch from ``generators[i]`` as a
         :class:`QLearner` does from its generator, or takes ``idx[k, i]``.
         Returns each seed's mean loss (S,)."""
-        losses = []
-        n = self.args.batch_size
-        for k in range(n_updates):
-            if idx is None:
-                device = replay.data["u"].device
-                ks = torch.stack([torch.randint(0, max(replay.size, 1), (n,),
-                                                generator=g, device=device)
-                                  for g in generators])
-            else:
-                ks = idx[k]
-            losses.append(self.update(sample_stacked(replay, ks)))
-        return torch.stack(losses).mean(dim=0)
+        with tracing.span("learn_many"):
+            losses = []
+            n = self.args.batch_size
+            for k in range(n_updates):
+                with tracing.span("learn.sample"):
+                    if idx is None:
+                        device = replay.data["u"].device
+                        ks = torch.stack([
+                            torch.randint(0, max(replay.size, 1), (n,),
+                                          generator=g, device=device)
+                            for g in generators])
+                    else:
+                        ks = idx[k]
+                    batch = sample_stacked(replay, ks)
+                tracing.count("learn.rows", _rows(batch))
+                losses.append(self.update(batch))
+            return torch.stack(losses).mean(dim=0)
 
     # ------------------------------------------------------------------
     def state(self) -> dict:

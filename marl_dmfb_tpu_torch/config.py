@@ -183,6 +183,7 @@ class Args:
 
     # --- port additions ---
     device: str = "cuda"
+    profile_dir: str = ""         # train: profile a cycle into this dir
 
     def apply_env_defaults(self):
         """set_default (JAX config.py:111-137): DMFB 10x10, fov 9; MEDA
@@ -334,6 +335,11 @@ def get_train_args(argv=None, pri: bool = True) -> Args:
                    help="override the replay capacity (episodes)")
     p.add_argument("--batch_size", type=int, default=None,
                    help="override the learner minibatch (episodes)")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="run the first cycle after step 0 under "
+                        "torch.profiler and write its Chrome trace "
+                        "(trace.json) and the port's spans (spans.json) "
+                        "into this directory")
     d = vars(p.parse_args(argv))
     exact_steps = d.pop("exact_steps")
     overrides = {k: v for k in ("buffer_size", "batch_size")

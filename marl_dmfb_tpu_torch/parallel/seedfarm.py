@@ -62,6 +62,7 @@ import os
 import pickle
 import re
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -78,6 +79,7 @@ from marl_dmfb_tpu_torch.replay import (ReplayState, init_replay,
 from marl_dmfb_tpu_torch.rollout import RolloutNoise, make_rollout
 from marl_dmfb_tpu_torch.trainer import (NET_CONFIG, curve_dir, curve_prefix,
                                          updates_per_rollout)
+from marl_dmfb_tpu_torch.utils import tracing
 from marl_dmfb_tpu_torch.utils.platform import disable_tf32
 
 EVAL_SEED_OFFSET = 1 << 31   # seed i's evaluation stream: offset + seed + i
@@ -219,29 +221,31 @@ class SeedFarm:
         """One collect-and-learn cycle of every seed; returns the env steps
         each counts (S,)."""
         a = self.args
-        states, noise = self._draws(self.env_states, self.generators, False)
-        result = self.rollout(states, None, self.epsilon,
-                              self.anneal_per_step, a.min_epsilon,
-                              noise=noise)
-        self.env_states = result.env_states
-        if a.epsilon_anneal_scale == "episode":
-            # the Trainer's host arithmetic, seed by seed
-            dec = self.B * (a.epsilon - a.min_epsilon) / a.anneal_steps
-            self.epsilon = torch.tensor(
-                [float(np.float32(max(a.min_epsilon, e - dec)))
-                 for e in self.epsilon.tolist()], device=self.device)
-        else:
-            self.epsilon = result.epsilon
-        self.replay = store_stacked(self.replay, result.episodes)
-        self.losses.append(self.learner.learn_many(
-            self.replay, self.updates_per_rollout, self.generators))
-        if self.ema is not None:
-            d = self.cycle_decay
-            with torch.no_grad():
-                for k, e in self.ema.items():
-                    e.copy_(d * e + (1.0 - d) * self.learner.params[k])
-        self.n_cycles += 1
-        return result.steps.view(self.S, -1).sum(dim=1).cpu().numpy()
+        with tracing.span("train_cycle"):
+            states, noise = self._draws(self.env_states, self.generators,
+                                        False)
+            result = self.rollout(states, None, self.epsilon,
+                                  self.anneal_per_step, a.min_epsilon,
+                                  noise=noise)
+            self.env_states = result.env_states
+            if a.epsilon_anneal_scale == "episode":
+                # the Trainer's host arithmetic, seed by seed
+                dec = self.B * (a.epsilon - a.min_epsilon) / a.anneal_steps
+                self.epsilon = torch.tensor(
+                    [float(np.float32(max(a.min_epsilon, e - dec)))
+                     for e in self.epsilon.tolist()], device=self.device)
+            else:
+                self.epsilon = result.epsilon
+            self.replay = store_stacked(self.replay, result.episodes)
+            self.losses.append(self.learner.learn_many(
+                self.replay, self.updates_per_rollout, self.generators))
+            if self.ema is not None:
+                d = self.cycle_decay
+                with tracing.span("ema"), torch.no_grad():
+                    for k, e in self.ema.items():
+                        e.copy_(d * e + (1.0 - d) * self.learner.params[k])
+            self.n_cycles += 1
+            return result.steps.view(self.S, -1).sum(dim=1).cpu().numpy()
 
     def evaluate(self) -> dict:
         """Greedy evaluation of every seed on its evaluation chips (the EMA
@@ -378,11 +382,12 @@ class SeedFarm:
             self.curves[name].append(m[name])
         self.runtime.append(elapsed)
 
-    def run(self) -> dict:
+    def run(self, profile_dir: Optional[str] = None) -> dict:
         """Train until the mean env steps over the seeds reach the budget,
         evaluating and checkpointing every ``evaluate_cycle`` steps (JAX
         ``run_farm``); returns the curves, each (S, E) but ``runtime``
-        (E,)."""
+        (E,).  ``profile_dir``: the first cycle after step 0 runs under
+        ``torch.profiler``, as :meth:`Trainer.run`'s."""
         a = self.args
         if a.load_model:
             self.load_farm()
@@ -398,7 +403,12 @@ class SeedFarm:
                       f"{np.round(self.curves['success_rate'][-1], 3)}",
                       flush=True)
                 self.save_farm(self.evaluate_steps)
-            self.time_steps += self.train_cycle()
+            if profile_dir and self.time_steps.mean() > 0:
+                self.time_steps += tracing.profile_to(
+                    profile_dir, self.train_cycle, self.device)
+                profile_dir = None
+            else:
+                self.time_steps += self.train_cycle()
         self.save_seeds("final")
         self._record(self.evaluate(), time.time() - start)
         curves = self.save_curves()

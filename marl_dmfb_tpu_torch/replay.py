@@ -31,6 +31,9 @@ every rank.  Two pairings, which must not be mixed (JAX ``replay.py:137-161``):
   written with its own B/n episodes at the shared cursor ``cursor // n``,
   and a rank draws its b/n indices from its own rows, with a stream of its
   own; no episode leaves its rank.
+
+Each store, of any of the three forms, is the span ``store``
+(``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from marl_dmfb_tpu_torch.parallel.mesh import Mesh, gather_rows, gather_shards
+from marl_dmfb_tpu_torch.utils import tracing
 
 
 class ReplayState(NamedTuple):
@@ -111,26 +115,27 @@ def store(replay: ReplayState, episodes: dict,
     rank's rows of the global ring and ``episodes`` this rank's rows of the
     cycle's: they are gathered, and the rank writes the ring rows it
     holds."""
-    flat = _flatten_episodes(episodes)
-    if mesh is None:
-        return _store(replay, flat, 0)
-    cap_l = replay.data["u"].shape[0]
-    capacity = cap_l * mesh.size
-    b_l = flat["u"].shape[0]
-    B = b_l * mesh.size
-    if B > capacity:
-        raise ValueError(f"a rollout of {B} episodes does not fit a replay "
-                         f"ring of {capacity}")
-    device = flat["u"].device
-    glob = gather_shards(mesh, flat)
-    pos = (replay.cursor + torch.arange(B, device=device)) % capacity
-    mine = (pos // cap_l) == mesh.rank
-    rows = pos[mine] % cap_l
-    for k, v in replay.data.items():
-        v.index_copy_(0, rows, glob[k][mine].to(v.dtype))
-    return ReplayState(data=replay.data,
-                       cursor=(replay.cursor + B) % capacity,
-                       size=min(replay.size + B, capacity))
+    with tracing.span("store"):
+        flat = _flatten_episodes(episodes)
+        if mesh is None:
+            return _store(replay, flat, 0)
+        cap_l = replay.data["u"].shape[0]
+        capacity = cap_l * mesh.size
+        b_l = flat["u"].shape[0]
+        B = b_l * mesh.size
+        if B > capacity:
+            raise ValueError(f"a rollout of {B} episodes does not fit a "
+                             f"replay ring of {capacity}")
+        device = flat["u"].device
+        glob = gather_shards(mesh, flat)
+        pos = (replay.cursor + torch.arange(B, device=device)) % capacity
+        mine = (pos // cap_l) == mesh.rank
+        rows = pos[mine] % cap_l
+        for k, v in replay.data.items():
+            v.index_copy_(0, rows, glob[k][mine].to(v.dtype))
+        return ReplayState(data=replay.data,
+                           cursor=(replay.cursor + B) % capacity,
+                           size=min(replay.size + B, capacity))
 
 
 def store_local(replay: ReplayState, episodes: dict,
@@ -138,29 +143,31 @@ def store_local(replay: ReplayState, episodes: dict,
     """``--local_sampling``'s store (JAX ``make_local_store``): this rank's
     B/n episodes go into its own ring of C/n rows at ``cursor // n``; the
     global cursor and size advance by B.  No episode leaves the rank."""
-    flat = _flatten_episodes(episodes)
-    cap_l = replay.data["u"].shape[0]
-    capacity = cap_l * mesh.size
-    b_l = flat["u"].shape[0]
-    device = flat["u"].device
-    rows = (replay.cursor // mesh.size
-            + torch.arange(b_l, device=device)) % cap_l
-    for k, v in replay.data.items():
-        v.index_copy_(0, rows, flat[k].to(v.dtype))
-    B = b_l * mesh.size
-    return ReplayState(data=replay.data,
-                       cursor=(replay.cursor + B) % capacity,
-                       size=min(replay.size + B, capacity))
+    with tracing.span("store"):
+        flat = _flatten_episodes(episodes)
+        cap_l = replay.data["u"].shape[0]
+        capacity = cap_l * mesh.size
+        b_l = flat["u"].shape[0]
+        device = flat["u"].device
+        rows = (replay.cursor // mesh.size
+                + torch.arange(b_l, device=device)) % cap_l
+        for k, v in replay.data.items():
+            v.index_copy_(0, rows, flat[k].to(v.dtype))
+        B = b_l * mesh.size
+        return ReplayState(data=replay.data,
+                           cursor=(replay.cursor + B) % capacity,
+                           size=min(replay.size + B, capacity))
 
 
 def store_stacked(replay: ReplayState, episodes: dict) -> ReplayState:
     """:func:`store` of S seeds' episodes, each array ``(S*B, T, ...)``
     seed-major, into the rings of ``init_replay(seeds=S)``: seed i's B
     episodes at the shared cursor of its ring."""
-    S = replay.data["u"].shape[0]
-    flat = {k: v.view(S, v.shape[0] // S, *v.shape[1:])
-            for k, v in _flatten_episodes(episodes).items()}
-    return _store(replay, flat, 1)
+    with tracing.span("store"):
+        S = replay.data["u"].shape[0]
+        flat = {k: v.view(S, v.shape[0] // S, *v.shape[1:])
+                for k, v in _flatten_episodes(episodes).items()}
+        return _store(replay, flat, 1)
 
 
 def _store(replay: ReplayState, episodes: dict, axis: int) -> ReplayState:

@@ -18,6 +18,13 @@ are the JAX package's:
   (QMIX) ``s_ext`` the T+1 global states, int8, each written as its step
   runs (a MEDA 30x60 state is 3600 values a chip).
 
+A rollout is the span ``rollout`` (``utils/tracing.py``): first
+``rollout.reset`` (the new tasks and the first observation), then each
+step's work, ``rollout.act`` (the net, the argmax, the exploration draws),
+``rollout.env_step`` (the move-success draws and the env's step) and
+``rollout.record`` (the freezing of ended episodes, the stored fields, the
+metrics, the epsilon anneal), and ``rollout.pack`` stacks the episodes.
+
 Under a mesh (``parallel/mesh.py``) the chips are this rank's rows of the
 global batch, and every draw is made at the global shape from the
 generator, which is alike on every rank, and cut to the rank's rows: the
@@ -37,6 +44,7 @@ import torch.nn.functional as F
 from marl_dmfb_tpu_torch.envs.registry import Env
 from marl_dmfb_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
                                                shard_rows, tile_rows)
+from marl_dmfb_tpu_torch.utils import tracing
 from marl_dmfb_tpu_torch.utils.platform import disable_tf32
 
 
@@ -100,12 +108,19 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
     def rollout(env_states, generator: torch.Generator, epsilon,
                 anneal_per_step, min_epsilon, greedy: bool = False,
                 noise: Optional[RolloutNoise] = None) -> RolloutResult:
-        if mesh is None:
-            states = env.reset(env_states, generator)
-        else:   # the global batch's new tasks, this rank's rows of them
-            states = shard_rows(mesh, env.reset(tile_rows(mesh, env_states),
-                                                generator))
-        obs0 = env.observe(states)
+        with tracing.span("rollout"):
+            return run(env_states, generator, epsilon, anneal_per_step,
+                       min_epsilon, greedy, noise)
+
+    def run(env_states, generator, epsilon, anneal_per_step, min_epsilon,
+            greedy, noise) -> RolloutResult:
+        with tracing.span("rollout.reset"):
+            if mesh is None:
+                states = env.reset(env_states, generator)
+            else:   # the global batch's new tasks, this rank's rows of them
+                states = shard_rows(mesh, env.reset(
+                    tile_rows(mesh, env_states), generator))
+            obs0 = env.observe(states)
         B, device = obs0.shape[0], obs0.device
         n = 1 if mesh is None else mesh.size
         rows = slice(None) if mesh is None else mesh.rows(B * n)
@@ -138,64 +153,75 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
             s_ext[:, 0] = s0
         metrics = {k: [] for k in ("reward", "live", "constraints", "success")}
         for t in range(T):
-            q, h = net_forward(obs, last, h)
-            a = q.argmax(dim=-1).to(torch.int32)
-            if not greedy:
-                if noise is None:
-                    rand_a = torch.randint(0, A, (B * n, N),
-                                           generator=generator, device=device,
-                                           dtype=torch.int32)
-                    explore_u = torch.rand((B * n, N), generator=generator,
-                                           device=device)
-                else:
-                    rand_a, explore_u = noise.rand_a[t], noise.explore_u[t]
-                a = torch.where(explore_u[rows] < chip_eps(eps), rand_a[rows],
-                                a)
-            uniforms = (torch.rand((B * n, N), generator=generator,
-                                   device=device)
-                        if noise is None else noise.env_uniforms[t])[rows]
-            new_states, out = env.step_core(states, a, uniforms)
-            states = _tree_where(live, new_states, states)
+            with tracing.span("rollout.act"):
+                q, h = net_forward(obs, last, h)
+                a = q.argmax(dim=-1).to(torch.int32)
+                if not greedy:
+                    if noise is None:
+                        rand_a = torch.randint(
+                            0, A, (B * n, N), generator=generator,
+                            device=device, dtype=torch.int32)
+                        explore_u = torch.rand(
+                            (B * n, N), generator=generator, device=device)
+                    else:
+                        rand_a = noise.rand_a[t]
+                        explore_u = noise.explore_u[t]
+                    a = torch.where(explore_u[rows] < chip_eps(eps),
+                                    rand_a[rows], a)
+            with tracing.span("rollout.env_step"):
+                uniforms = (torch.rand((B * n, N), generator=generator,
+                                       device=device)
+                            if noise is None else noise.env_uniforms[t])[rows]
+                new_states, out = env.step_core(states, a, uniforms)
+            with tracing.span("rollout.record"):
+                states = _tree_where(live, new_states, states)
 
-            lv3 = live[:, None, None]
-            trans["o_next"].append(torch.where(lv3, out.obs, 0))
-            trans["u"].append(torch.where(lv3, a[..., None], 0))
-            trans["r"].append(torch.where(live, out.team_reward, 0.0)[:, None])
-            trans["padded"].append((~live)[:, None])
-            trans["terminated"].append(
-                torch.where(live, out.terminated, True)[:, None])
+                lv3 = live[:, None, None]
+                trans["o_next"].append(torch.where(lv3, out.obs, 0))
+                trans["u"].append(torch.where(lv3, a[..., None], 0))
+                trans["r"].append(
+                    torch.where(live, out.team_reward, 0.0)[:, None])
+                trans["padded"].append((~live)[:, None])
+                trans["terminated"].append(
+                    torch.where(live, out.terminated, True)[:, None])
+                if with_state:
+                    s_ext[:, t + 1] = torch.where(
+                        live[:, None], env.global_state(new_states), 0)
+                metrics["reward"].append(
+                    torch.where(live, out.team_reward, 0.0))
+                metrics["live"].append(live.int())
+                metrics["constraints"].append(
+                    torch.where(live, out.constraints, 0))
+                metrics["success"].append(torch.where(live, out.success, 0))
+                if not greedy:
+                    eps = torch.maximum(min_eps,
+                                        eps - anneal * live_frac(live))
+                # obs/last-action carries of ended episodes need no
+                # freezing: everything stored from them is masked by `live`
+                live = live & ~out.terminated
+                obs = out.obs
+                last = F.one_hot(a.long(), A).float()
+
+        tracing.count("rollout.chip_steps", B * T)
+        with tracing.span("rollout.pack"):
+            episodes = {k: torch.stack(v, dim=1) for k, v in trans.items()}
+            episodes["o_ext"] = torch.cat(
+                [obs0[:, None], episodes.pop("o_next")], dim=1)
             if with_state:
-                s_ext[:, t + 1] = torch.where(
-                    live[:, None], env.global_state(new_states), 0)
-            metrics["reward"].append(torch.where(live, out.team_reward, 0.0))
-            metrics["live"].append(live.int())
-            metrics["constraints"].append(torch.where(live, out.constraints, 0))
-            metrics["success"].append(torch.where(live, out.success, 0))
-            if not greedy:
-                eps = torch.maximum(min_eps, eps - anneal * live_frac(live))
-            # obs/last-action carries of ended episodes need no freezing:
-            # everything stored from them is masked by `live`
-            live = live & ~out.terminated
-            obs = out.obs
-            last = F.one_hot(a.long(), A).float()
-
-        episodes = {k: torch.stack(v, dim=1) for k, v in trans.items()}
-        episodes["o_ext"] = torch.cat(
-            [obs0[:, None], episodes.pop("o_next")], dim=1)
-        if with_state:
-            episodes["s_ext"] = s_ext
-        m = {k: torch.stack(v) for k, v in metrics.items()}   # (T, B)
-        success = (m["success"].sum(dim=0) > 0).int()
-        steps = torch.where(success == 1, m["live"].sum(dim=0), T)
-        return RolloutResult(
-            episodes=episodes,
-            env_states=states,
-            epsilon=eps,
-            reward=m["reward"].sum(dim=0),
-            steps=steps.int(),
-            constraints=m["constraints"].sum(dim=0).int(),
-            success=success,
-        )
+                episodes["s_ext"] = s_ext
+            m = {k: torch.stack(v) for k, v in metrics.items()}   # (T, B)
+            del trans, metrics   # the steps' tensors are freed in the span
+            success = (m["success"].sum(dim=0) > 0).int()
+            steps = torch.where(success == 1, m["live"].sum(dim=0), T)
+            return RolloutResult(
+                episodes=episodes,
+                env_states=states,
+                epsilon=eps,
+                reward=m["reward"].sum(dim=0),
+                steps=steps.int(),
+                constraints=m["constraints"].sum(dim=0).int(),
+                success=success,
+            )
 
     return rollout
 

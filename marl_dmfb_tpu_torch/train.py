@@ -18,6 +18,12 @@ on the GPU unless ``--device cpu`` is given, and raises when CUDA is asked
 for and absent.  ``--load_model`` resumes from a full-state checkpoint of
 the port (``--load_model_name``, default ``final``).
 
+``--profile_dir DIR`` runs the first cycle after step 0 under
+``torch.profiler`` and writes ``DIR/trace.json`` (a Chrome trace, the
+port's ``marl.*`` spans beside the kernels) and ``DIR/spans.json`` (the
+spans' summary, ``utils/tracing.py``); under a mesh each rank writes
+``DIR/rank<r>/``.
+
 ``--vmap_seeds K`` (K > 1) trains seeds ``seed .. seed + K - 1`` in
 lockstep as one program (``parallel/seedfarm.py``); its ``--load_model``
 resumes from the farm's newest ``farm_<E>_resume.pt``.
@@ -92,12 +98,13 @@ def run(args: Args, mesh=None):
     env = make_env_from_args(args)
     if args.vmap_seeds > 1:
         farm = SeedFarm(env, args, args.vmap_seeds)
-        farm.run()
+        farm.run(profile_dir=args.profile_dir)
         return farm
     trainer = Trainer(env, args, mesh=mesh)
     if args.load_model:
         trainer.load_model(load_model_tag(args))
-    trainer.run(online_evaluate=args.online_eval)
+    trainer.run(online_evaluate=args.online_eval,
+                profile_dir=args.profile_dir)
     return trainer
 
 

@@ -16,6 +16,9 @@ names.  Per cycle:
   reference's updates per collected episode;
 * failed episodes count as ``episode_limit`` env steps.
 
+A cycle is the span ``train_cycle`` (``utils/tracing.py``), which holds
+the rollout's, the store's, the learner's and the EMA step's spans.
+
 Seeds: ``args.seed`` seeds a CPU generator for the parameters, the agent's
 and then a QMIX mixer's (so the weights are the same on every device), and
 one on ``args.device`` for the evaluation chips, the training chips, the
@@ -58,6 +61,7 @@ from marl_dmfb_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
                                                barrier, gather_shards,
                                                shard_rows)
 from marl_dmfb_tpu_torch.rollout import make_rollout, summarize_eval
+from marl_dmfb_tpu_torch.utils import tracing
 from marl_dmfb_tpu_torch.utils.platform import disable_tf32
 
 NET_CONFIG = ("net", "rnn_hidden_dim", "hyper_hidden_dim", "qmix_hidden_dim",
@@ -376,30 +380,34 @@ class Trainer:
         if self.learner is None:
             raise RuntimeError("Trainer was built with eval_only=True")
         a = self.args
-        result = self.rollout(self.env_states, self.generator, self.epsilon,
-                              self.anneal_per_step, a.min_epsilon)
-        self.env_states = result.env_states
-        if a.epsilon_anneal_scale == "episode":
-            # the reference decrements once per generated episode
-            # (rollout.py:126-127 with train.py:59-66)
-            dec = self.B * (a.epsilon - a.min_epsilon) / a.anneal_steps
-            self.epsilon = float(np.float32(
-                max(a.min_epsilon, float(self.epsilon) - dec)))
-        else:
-            self.epsilon = result.epsilon
-        self.replay = self._store(self.replay, result.episodes, self.mesh)
-        self.losses.append(self.learner.learn_many(
-            self.replay, self.updates_per_rollout, self.generator))
-        if self.ema_net is not None:
-            self.ema_step()
-        self.n_cycles += 1
-        return int(all_reduce_sum(self.mesh, result.steps.sum()))
+        with tracing.span("train_cycle"):
+            result = self.rollout(self.env_states, self.generator,
+                                  self.epsilon, self.anneal_per_step,
+                                  a.min_epsilon)
+            self.env_states = result.env_states
+            if a.epsilon_anneal_scale == "episode":
+                # the reference decrements once per generated episode
+                # (rollout.py:126-127 with train.py:59-66)
+                dec = self.B * (a.epsilon - a.min_epsilon) / a.anneal_steps
+                self.epsilon = float(np.float32(
+                    max(a.min_epsilon, float(self.epsilon) - dec)))
+            else:
+                self.epsilon = result.epsilon
+            self.replay = self._store(self.replay, result.episodes,
+                                      self.mesh)
+            self.losses.append(self.learner.learn_many(
+                self.replay, self.updates_per_rollout, self.generator))
+            if self.ema_net is not None:
+                self.ema_step()
+            self.n_cycles += 1
+            return int(all_reduce_sum(self.mesh, result.steps.sum()))
 
     def ema_step(self):
         """The cycle's EMA step (``--param_ema``) over the agent's params
         and a QMIX mixer's (JAX trainer.py:260-274)."""
-        ema_update(_named(self.ema_net, self.ema_mixer),
-                   _named(self.net, self.mixer), self.cycle_decay)
+        with tracing.span("ema"):
+            ema_update(_named(self.ema_net, self.ema_mixer),
+                       _named(self.net, self.mixer), self.cycle_decay)
 
     def _append(self, m: dict):
         self.episode_rewards.append(m["reward"])
@@ -413,10 +421,18 @@ class Trainer:
             self.plot()
             self.save_curves()
 
-    def run(self, online_evaluate: bool = True) -> dict:
+    def run(self, online_evaluate: bool = True,
+            profile_dir: Optional[str] = None) -> dict:
         """The main loop (JAX trainer.py:494-563, reference
-        train.py:32-93)."""
+        train.py:32-93).
+
+        ``profile_dir``: the first cycle after step 0 runs under
+        ``torch.profiler``, which writes its Chrome trace and the spans'
+        summary there (``tracing.profile_to``; under a mesh each rank
+        under ``rank<r>/``)."""
         args = self.args
+        if profile_dir and self.mesh is not None:
+            profile_dir = os.path.join(profile_dir, f"rank{self.mesh.rank}")
         time_steps, evaluate_steps = 0, -1
         start = time.time()
         while time_steps < args.total_env_steps:
@@ -433,7 +449,13 @@ class Trainer:
                           + (f", success {self.success_rate[-1]:.3f}"
                              if online_evaluate and self.success_rate
                              else ""), flush=True)
-            time_steps += self.train_cycle()
+            if profile_dir and time_steps > 0:
+                time_steps += tracing.profile_to(profile_dir,
+                                                 self.train_cycle,
+                                                 self.device)
+                profile_dir = None
+            else:
+                time_steps += self.train_cycle()
         self.save_model("final")
         self.time_cost.append(time.time() - start)
         if online_evaluate:

@@ -1,10 +1,9 @@
-"""The port stands alone: ``marl_dmfb_tpu_torch``, ``chip_smoke.py`` and the
-card's tools (``tools/profile_torch_rollout.py``,
-``tools/profile_torch_learn.py``, ``tools/profile_torch_mesh.py``,
-``tools/time_dmfb_step.py``, ``tools/repeat_torch_benches.py``,
-``tools/time_to_quality_torch.py``, ``tools/time_to_quality_seeds.py``,
-``tools/degrade_sweeps_torch.py``, ``tools/time_after_profiler.py``,
-``tools/ring_size_torch.py``)
+"""The port stands alone: ``marl_dmfb_tpu_torch`` (its tracing module
+``utils/tracing.py`` too), ``chip_smoke.py`` and the card's tools
+(``tools/profile_torch_mesh.py``, ``tools/time_dmfb_step.py``,
+``tools/repeat_torch_benches.py``, ``tools/time_to_quality_torch.py``,
+``tools/time_to_quality_seeds.py``, ``tools/degrade_sweeps_torch.py``,
+``tools/time_after_profiler.py``, ``tools/ring_size_torch.py``)
 import nothing of JAX, its libraries, YAML, matplotlib or the JAX package
 (the GPU machine has none of them), nor the JAX-side tools of the port:
 ``tools/export_flax_npz.py``, whose ``.npz`` files they read with numpy,
@@ -24,9 +23,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "yaml",
              "matplotlib", "marl_dmfb_tpu"}
 PORT_FILES = sorted((ROOT / "marl_dmfb_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_rollout.py",
-    ROOT / "tools" / "profile_torch_learn.py",
-    ROOT / "tools" / "profile_torch_mesh.py",
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_mesh.py",
     ROOT / "tools" / "time_dmfb_step.py",
     ROOT / "tools" / "repeat_torch_benches.py",
     ROOT / "tools" / "time_to_quality_torch.py",
@@ -140,7 +137,7 @@ def test_scan_sees_the_whole_port():
                  "marl_dmfb_tpu_torch/utils/benchmarking.py",
                  "marl_dmfb_tpu_torch/parallel/mesh.py",
                  "marl_dmfb_tpu_torch/parallel/distributed.py",
-                 "tools/profile_torch_learn.py"):
+                 "marl_dmfb_tpu_torch/utils/tracing.py"):
         assert want in names
 
 

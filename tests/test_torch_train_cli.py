@@ -36,7 +36,7 @@ def test_train_args_match_jax(argv):
     j = jconfig.get_train_args(argv, pri=False)
     t = tconfig.get_train_args(argv, pri=False)
     for field in tconfig.Args.__dataclass_fields__:
-        if field == "device":
+        if field in ("device", "profile_dir"):   # the port's own
             continue
         assert getattr(t, field) == getattr(j, field), field
     assert t.total_env_steps == j.total_env_steps
