@@ -9,9 +9,13 @@ with a global-norm clip and Adam (or RMSprop, or SGD).  The clip, the
 optimizer, the EMA and the target sync act on the agent's and the mixer's
 parameters alike, as optax does on the JAX package's whole params tree; the
 target nets are copied from the eval nets every ``target_update_cycle``
-updates.  ``--remat`` recomputes each time step's activations in the
-backward pass, as JAX's ``jax.checkpoint`` around the scan body
-(:func:`checkpoint`); the loss and the gradients are the same.
+updates.  An unroll (:func:`unroll`) runs the encoder and the Q head once
+over every (step, episode, agent) row and the GRU over the whole sequence
+in one call, cuDNN's on a card; ``--remat``, ``--fused_streams``, bf16 and
+the seed farm loop over time instead, one call of the whole net a step.
+``--remat`` recomputes each time step's activations in the backward pass,
+as JAX's ``jax.checkpoint`` around the scan body (:func:`checkpoint`); the
+loss and the gradients are the same.
 ``--fused_streams`` runs the eval and the target streams in one unroll over
 the two nets' parameters stacked (JAX ``unroll_pair``), the target half
 detached.
@@ -54,7 +58,8 @@ An update's spans (``utils/tracing.py``), inside ``learn_many``'s:
 unrolls and the TD loss), ``learn.backward`` (the gradients, and under a
 mesh their ``all_reduce``) and ``learn.optim`` (the clip, the optimizer
 step, the target sync); the counter ``learn.rows`` adds each minibatch's
-(episode, step, agent) rows.
+(episode, step, agent) rows, and ``learn.unroll.sequence`` and
+``learn.unroll.stepwise`` the streams unrolled by each path.
 """
 
 from __future__ import annotations
@@ -67,7 +72,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from marl_dmfb_tpu_torch.models.networks import (StackedNet, stackable,
+from marl_dmfb_tpu_torch.models.networks import (StackedNet,
+                                                 runs_as_sequence, stackable,
                                                  vdn_mix)
 from marl_dmfb_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum,
                                                replicate)
@@ -244,14 +250,37 @@ def checkpoint(net, x: torch.Tensor, h: torch.Tensor):
     return _Remat.apply(step, *params.values(), x, h)
 
 
+def sequence_unroll(net, x_tb: torch.Tensor) -> torch.Tensor:
+    """The net over a whole sequence ``x_tb`` ``(T, R, in_dim)`` -> Qs
+    ``(T, R, n_actions)``: the encoder and the Q head, which read no
+    hidden state, once over all T*R rows, and the GRU in one sequence call
+    (:meth:`TorchGRUCell.sequence`)."""
+    T, R = x_tb.shape[:2]
+    x = net.encode(x_tb.reshape(T * R, -1)).view(T, R, -1)
+    h = net.gru.sequence(x)
+    return net.head(h.reshape(T * R, -1)).view(T, R, -1)
+
+
 def unroll(net, inputs: torch.Tensor, rnn_hidden: int,
            remat: bool = False) -> torch.Tensor:
-    """The whole net (a module, or a :class:`StackedNet`) in a loop over
-    time on ``(b*N)`` rows: inputs ``(b, T, N, in_dim)`` -> Qs
-    ``(b, T, N, n_actions)``.  With ``remat`` each step's activations are
-    recomputed in the backward pass instead of kept."""
+    """The net (a module, or a :class:`StackedNet`) over time on ``(b*N)``
+    rows: inputs ``(b, T, N, in_dim)`` -> Qs ``(b, T, N, n_actions)``.
+
+    A float32 agent module (:func:`runs_as_sequence`) without ``remat``
+    takes :func:`sequence_unroll`.  Else the whole net runs in a loop over
+    time: under ``remat``, whose point is to keep no step's activations,
+    each step's are recomputed in the backward pass (with gradients); a
+    :class:`StackedNet`, the seed farm's stacked cells and bf16 cannot take
+    the sequence call.  The counters ``learn.unroll.sequence`` and
+    ``learn.unroll.stepwise`` count the streams each path unrolls (a
+    :class:`StackedNet`'s parameter sets, each one)."""
     b, T, N = inputs.shape[:3]
     x_tb = inputs.transpose(0, 1).reshape(T, b * N, -1)
+    if not remat and runs_as_sequence(net):
+        tracing.count("learn.unroll.sequence", 1)
+        return sequence_unroll(net, x_tb).view(T, b, N, -1).transpose(0, 1)
+    tracing.count("learn.unroll.stepwise",
+                  net.n_seeds if isinstance(net, StackedNet) else 1)
     h = inputs.new_zeros((b * N, rnn_hidden))
     remat = remat and torch.is_grad_enabled()
     qs = []
@@ -366,7 +395,7 @@ class TDLoss(nn.Module):
         else:
             q_evals = unroll(self.net, eval_in, H, remat)
             with torch.no_grad():
-                q_targets = unroll(self.target_net, tgt_in, H)
+                q_targets = unroll(self.target_net, tgt_in, H, remat)
         q_e = q_evals.gather(3, u).squeeze(3)          # (b, T, N)
         q_t = torch.where(avail_next == 0.0, MASKED_Q, q_targets).amax(3)
         if self.mixer is None:

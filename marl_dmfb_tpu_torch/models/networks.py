@@ -26,6 +26,7 @@ In float32 every layer is torch's own.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional, Sequence
 
 import torch
@@ -98,6 +99,25 @@ class TorchGRUCell(nn.GRUCell):
         z = torch.sigmoid(i_z + h_z)
         n = torch.tanh(i_n + r * h_n)
         return (1.0 - z) * n + z * h
+
+    def sequence(self, x: torch.Tensor) -> torch.Tensor:
+        """The float32 cell run over a whole sequence from a zero state in
+        one call of torch's sequence GRU (cuDNN's on a card): ``x`` ``(T,
+        R, input_size)`` -> every step's hidden state ``(T, R,
+        hidden_size)``.  torch's GRU and GRUCell share the gate order and
+        equations (``b_hn`` inside ``r * (...)``), so this is the cell's
+        loop to float32 rounding.  The call takes the cell's own
+        parameters, so their gradients are the cell's, and the optimizer,
+        the EMA and the target sync see one set; cuDNN then packs them
+        into its buffer on each call (a copy of the cell's weights), and
+        its warning that it does so is silenced."""
+        h0 = x.new_zeros((1, x.shape[1], self.hidden_size))
+        weights = [self.weight_ih, self.weight_hh, self.bias_ih, self.bias_hh]
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "RNN module weights are not")
+            out, _ = torch._VF.gru(x, h0, weights, True, 1, 0.0,
+                                   torch.is_grad_enabled(), False, False)
+        return out
 
 
 class TorchConv(nn.Conv2d):
@@ -173,6 +193,14 @@ class RNNAgent(nn.Module):
         h = self.gru(F.relu(self.fc1(inputs)), h)
         return self.fc2(h), h
 
+    def encode(self, inputs: torch.Tensor) -> torch.Tensor:
+        """The GRU's input, which reads no hidden state."""
+        return F.relu(self.fc1(inputs))
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """The Q head on hidden states."""
+        return self.fc2(h)
+
 
 class CRNNAgent(nn.Module):
     """Conv stack over the FOV image + MLP over the direction/last-action
@@ -210,6 +238,20 @@ class CRNNAgent(nn.Module):
     def forward(self, inputs: torch.Tensor, h: torch.Tensor):
         h = self.gru(self.encode(inputs), h)
         return self.fc1(h), h
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """The Q head on hidden states."""
+        return self.fc1(h)
+
+
+def runs_as_sequence(net) -> bool:
+    """Whether ``net`` is an RNN or CRNN agent module whose GRU cell is
+    torch's own float32 cell (:meth:`TorchGRUCell.sequence` computes the
+    same): not bf16, which rounds each step's ``W_hh h`` operands, and not
+    in the ``stacked`` form, as cuDNN's sequence GRU has no ``vmap``
+    batching rule."""
+    return (isinstance(net, (RNNAgent, CRNNAgent))
+            and net.gru.compute_dtype is None and not net.gru.stacked)
 
 
 def stackable(module: nn.Module) -> nn.Module:

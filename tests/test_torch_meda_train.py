@@ -3,7 +3,8 @@ package on the CPU.
 
 * the MEDA train and evaluate CLIs parse to JAX's values, and
   ``MEDA_HPARAMS`` equals ``marl_dmfb_tpu/data/meda/*.yaml``;
-* ``--remat`` gives the loss and gradients of the run without it, and the
+* ``--remat`` gives the loss and gradients of the stepwise loop without
+  it, and of the default sequence unroll to float32 rounding, and the
   updates match JAX's with it;
 * MEDA rollout -> store -> ``learn_many`` against JAX's
   (``tests/torch_learn_util.check_composed``);
@@ -39,8 +40,8 @@ from marl_dmfb_tpu_torch.envs import meda as tmeda
 from marl_dmfb_tpu_torch.rollout import make_rollout as tmake_rollout
 from marl_dmfb_tpu_torch.trainer import Trainer, restore_net_config
 from tests.test_torch_export import restored
-from tests.torch_learn_util import (QMIX, SMALL_MEDA, batch_for,
-                                    check_composed, check_updates,
+from tests.torch_learn_util import (GRAD_ATOL, LOSS_RTOL, QMIX, SMALL_MEDA,
+                                    batch_for, check_composed, check_updates,
                                     jax_learner, port_learner)
 from tests.torch_port_util import WEIGHTS, replay_noise, to_torch_state
 
@@ -105,6 +106,10 @@ def test_meda_evaluate_args_match_jax(argv):
 @pytest.mark.parametrize("items", [SMALL_MEDA, QMIX + SMALL_MEDA],
                          ids=["vdn", "qmix"])
 def test_remat_gives_the_same_loss_and_gradients(items, monkeypatch):
+    """``--remat`` gives bitwise the loss and gradients of the stepwise loop
+    that keeps its activations, and those of the default sequence unroll
+    to float32 rounding (loss rtol ``LOSS_RTOL``, gradients ``GRAD_ATOL``
+    of their global norm)."""
     J = jax_learner(items)
     plain = port_learner(J.ta, J.init(jax.random.PRNGKey(2)))
     remat = port_learner(dataclasses.replace(J.ta, remat=True),
@@ -119,14 +124,22 @@ def test_remat_gives_the_same_loss_and_gradients(items, monkeypatch):
     monkeypatch.setattr(qlearn, "checkpoint", counting)
     batch = {k: torch.from_numpy(v) for k, v in
              batch_for(J.ta, np.random.RandomState(0)).items()}
-    l0, g0 = plain.loss_and_grads(batch)
+    l_seq, g_seq = plain.loss_and_grads(batch)
+    with monkeypatch.context() as m:   # the stepwise loop, no remat
+        m.setattr(qlearn, "runs_as_sequence", lambda net: False)
+        l0, g0 = plain.loss_and_grads(batch)
     assert not calls
     l1, g1 = remat.loss_and_grads(batch)
     assert len(calls) == J.ta.episode_limit       # one per BPTT step
     assert torch.equal(l0, l1)
-    assert g0.keys() == g1.keys()
+    assert g0.keys() == g1.keys() == g_seq.keys()
     for k in g0:
         assert torch.equal(g0[k], g1[k]), k
+    torch.testing.assert_close(l_seq, l1, rtol=LOSS_RTOL, atol=0)
+    norm = float(torch.sqrt(sum(torch.sum(g * g) for g in g1.values())))
+    for k in g1:
+        torch.testing.assert_close(g_seq[k], g1[k], rtol=0,
+                                   atol=GRAD_ATOL * norm)
 
 
 def test_remat_updates_match_jax():

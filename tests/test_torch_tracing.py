@@ -130,7 +130,8 @@ def test_enabled_cycle_has_the_spans_in_their_parents(conf, tmp_path):
         **{k: U for k in UPDATE}, "ema": 1}
     N = t.args.n_agents
     assert s["counters"] == {"rollout.chip_steps": B * T,
-                             "learn.rows": U * t.args.batch_size * (T + 1) * N}
+                             "learn.rows": U * t.args.batch_size * (T + 1) * N,
+                             "learn.unroll.sequence": 2 * U}
     for v in s["spans"].values():
         assert 0 <= v["self_ms"] <= v["host_ms"] and v["device_ms"] is None
 
@@ -146,7 +147,8 @@ def test_farm_cycle_has_the_spans_in_their_parents(tmp_path):
     check_cycle(tracing.records(), T, U)
     c = tracing.summary()["counters"]
     assert c == {"rollout.chip_steps": 2 * 4 * T,
-                 "learn.rows": 2 * U * 4 * (T + 1) * args.n_agents}
+                 "learn.rows": 2 * U * 4 * (T + 1) * args.n_agents,
+                 "learn.unroll.stepwise": 2 * U}
 
 
 def test_off_records_nothing_and_enters_no_range(tmp_path, monkeypatch):
@@ -249,6 +251,38 @@ def test_farm_gradients_equal_the_vmapped_grad_and_value(tmp_path):
         functional_loss(L.loss_module)))(L.params, L.target_params, batch)
     assert torch.equal(loss, want_loss)
     assert_equal(grads, want_g)
+
+
+@pytest.mark.parametrize("kw, path", [
+    ({}, "sequence"),
+    ({"remat": True}, "stepwise"),
+    ({"fused_streams": True}, "stepwise"),
+    ({"compute_dtype": "bf16"}, "stepwise"),
+    ({"vmap_seeds": 2}, "stepwise"),
+], ids=["float32", "remat", "fused_streams", "bf16", "farm"])
+def test_update_counts_its_unrolls_by_path(kw, path, tmp_path):
+    """An update unrolls two streams, eval and target: a float32 agent's
+    both by the sequence branch; under ``--remat``, ``--fused_streams``
+    (one unroll of the two streams' stacked parameters), bf16 and the seed
+    farm's vmapped update both by the stepwise loop."""
+    args = make_args(tmp_path, **kw)
+    if args.vmap_seeds:
+        farm = SeedFarm(make_env_from_args(args), args, args.vmap_seeds)
+        farm.train_cycle()
+        learner, replay = farm.learner, farm.replay
+        idx = torch.zeros((1, args.vmap_seeds, args.batch_size),
+                          dtype=torch.long)
+    else:
+        t = trainer(args)
+        learner, replay = t.learner, t.replay
+        idx = torch.zeros((1, args.batch_size), dtype=torch.long)
+    tracing.enable()
+    learner.learn_many(replay, 1, None, idx)
+    tracing.disable()
+    c = tracing.summary()["counters"]
+    other = {"sequence": "stepwise", "stepwise": "sequence"}[path]
+    assert c["learn.unroll." + path] == 2
+    assert "learn.unroll." + other not in c
 
 
 @pytest.mark.parametrize("seeds", [0, 2], ids=["trainer", "farm"])
