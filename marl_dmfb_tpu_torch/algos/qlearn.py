@@ -57,9 +57,12 @@ An update's spans (``utils/tracing.py``), inside ``learn_many``'s:
 ``learn.sample`` (the minibatch's gather), ``learn.forward`` (both
 unrolls and the TD loss), ``learn.backward`` (the gradients, and under a
 mesh their ``all_reduce``) and ``learn.optim`` (the clip, the optimizer
-step, the target sync); the counter ``learn.rows`` adds each minibatch's
-(episode, step, agent) rows, and ``learn.unroll.sequence`` and
-``learn.unroll.stepwise`` the streams unrolled by each path.
+step, the target sync); under QMIX ``learn.mix`` (the eval and the target
+mixer calls) inside ``learn.forward``.  The counter ``learn.rows`` adds
+each minibatch's (episode, step, agent) rows, ``learn.unroll.sequence``
+and ``learn.unroll.stepwise`` the streams unrolled by each path, and
+``learn.mix.rows`` the (episode, step) rows each mixer call mixes, 2 b T
+an update.
 """
 
 from __future__ import annotations
@@ -402,9 +405,13 @@ class TDLoss(nn.Module):
             q_tot_e, q_tot_t = vdn_mix(q_e), vdn_mix(q_t)
         else:
             s_ext = batch["s_ext"].float()
-            q_tot_e = self.mixer(q_e, s_ext[:, :-1])
-            with torch.no_grad():
-                q_tot_t = self.target_mixer(q_t, s_ext[:, 1:])
+            rows = q_e.shape[0] * q_e.shape[1]
+            with tracing.span("learn.mix"):
+                q_tot_e = self.mixer(q_e, s_ext[:, :-1])
+                tracing.count("learn.mix.rows", rows)
+                with torch.no_grad():
+                    q_tot_t = self.target_mixer(q_t, s_ext[:, 1:])
+                tracing.count("learn.mix.rows", rows)
         targets = r + self.args.gamma * q_tot_t * (1.0 - terminated)
         td = (targets.detach() - q_tot_e) * mask
         return torch.sum(td ** 2), torch.sum(mask)

@@ -24,6 +24,8 @@ step's work, ``rollout.act`` (the net, the argmax, the exploration draws),
 ``rollout.env_step`` (the move-success draws and the env's step) and
 ``rollout.record`` (the freezing of ended episodes, the stored fields, the
 metrics, the epsilon anneal), and ``rollout.pack`` stacks the episodes.
+With ``with_state`` each ``env.global_state`` call is a ``rollout.state``
+span: the first before the steps, the others in their records.
 
 Under a mesh (``parallel/mesh.py``) the chips are this rank's rows of the
 global batch, and every draw is made at the global shape from the
@@ -148,7 +150,8 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
         live = torch.ones((B,), dtype=torch.bool, device=device)
         trans = {k: [] for k in ("o_next", "u", "r", "padded", "terminated")}
         if with_state:
-            s0 = env.global_state(states)
+            with tracing.span("rollout.state"):
+                s0 = env.global_state(states)
             s_ext = s0.new_empty((B, T + 1, s0.shape[1]))
             s_ext[:, 0] = s0
         metrics = {k: [] for k in ("reward", "live", "constraints", "success")}
@@ -185,8 +188,9 @@ def make_rollout(env: Env, net: torch.nn.Module, rnn_hidden: int,
                 trans["terminated"].append(
                     torch.where(live, out.terminated, True)[:, None])
                 if with_state:
-                    s_ext[:, t + 1] = torch.where(
-                        live[:, None], env.global_state(new_states), 0)
+                    with tracing.span("rollout.state"):
+                        s_next = env.global_state(new_states)
+                    s_ext[:, t + 1] = torch.where(live[:, None], s_next, 0)
                 metrics["reward"].append(
                     torch.where(live, out.team_reward, 0.0))
                 metrics["live"].append(live.int())

@@ -3,10 +3,13 @@ tracing.py``) on the CPU: off by default, where a cycle records nothing and
 enters no profiler range; the same results bitwise with tracing on and
 off; the structure of a traced cycle (DMFB, MEDA and the seed farm): each
 span inside its parent, the per-step and per-update call counts and the
-counters; a ``torch.profiler`` session's ``marl.*`` ranges and its own
-fresh record; the summary's self times; ``train --profile_dir``'s files;
-and the farm's split of its gradients into a forward and a backward, equal
-to the vmapped ``grad_and_value`` it replaced.  On a machine with a card
+counters; under QMIX the mixer's ``learn.mix`` and the rollout's
+``rollout.state`` (neither under VDN), ``learn.mix.rows`` and results
+bitwise the same on and off; a ``torch.profiler`` session's ``marl.*``
+ranges and its own fresh record; the summary's self times; ``train
+--profile_dir``'s files; and the farm's split of its gradients into a
+forward and a backward, equal to the vmapped ``grad_and_value`` it
+replaced.  On a machine with a card
 (``cuda``-marked): each span's device time from its CUDA events.
 
 No JAX here, so that the card's machine can run the ``cuda`` test:
@@ -315,3 +318,56 @@ def test_cuda_spans_time_the_device(tmp_path):
         assert v["device_ms"] is not None and v["device_ms"] > 0, name
     assert s["rollout"]["device_ms"] >= sum(
         s[k]["device_ms"] for k in ROLLOUT_STEP) * 0.99
+
+
+@pytest.mark.parametrize("conf", [DMFB, MEDA], ids=["dmfb", "meda"])
+def test_qmix_cycle_has_the_mix_and_state_spans(conf, tmp_path):
+    """Under QMIX each update's two mixer calls are one ``learn.mix`` inside
+    its ``learn.forward``, counted by ``learn.mix.rows`` (b T rows a call),
+    and each global state of the rollout a ``rollout.state``: the first
+    before the steps, the others inside their steps' records.  Under VDN
+    there is neither."""
+    qmix, vdn = (trainer(make_args(tmp_path / alg, conf, alg=alg))
+                 for alg in ("qmix", "vdn"))
+    for t in (qmix, vdn):
+        tracing.enable()
+        t.train_cycle()
+        tracing.disable()
+        recs, s = tracing.records(), tracing.summary()
+        names = {r["name"] for r in recs}
+        if t is vdn:
+            assert not names & {"learn.mix", "rollout.state"}
+            assert "learn.mix.rows" not in s["counters"]
+            continue
+        T, U = t.args.episode_limit, t.updates_per_rollout
+        b = t.args.batch_size
+        assert s["spans"]["learn.mix"]["calls"] == U
+        assert s["spans"]["rollout.state"]["calls"] == T + 1
+        assert s["counters"]["learn.mix.rows"] == U * 2 * b * T
+        parent = {i: recs[r["parent"]]["name"] for i, r in enumerate(recs)
+                  if r["parent"] is not None}
+        assert {parent[i] for i, r in enumerate(recs)
+                if r["name"] == "learn.mix"} == {"learn.forward"}
+        states = [i for i, r in enumerate(recs)
+                  if r["name"] == "rollout.state"]
+        assert parent[states[0]] == "rollout"
+        assert {parent[i] for i in states[1:]} == {"rollout.record"}
+        rollout = recs.index(next(r for r in recs if r["name"] == "rollout"))
+        assert [r["name"] for r in children(recs, rollout)][:2] == [
+            "rollout.reset", "rollout.state"]
+
+
+@pytest.mark.parametrize("how", ["enable", "profiler"])
+def test_qmix_results_are_bitwise_equal_on_and_off(how, tmp_path):
+    off, on = (trainer(make_args(tmp_path / d, MEDA, alg="qmix"))
+               for d in ("off", "on"))
+    off.train_cycle()
+    if how == "enable":
+        tracing.enable()
+        on.train_cycle()
+        tracing.disable()
+    else:
+        with profile(activities=[ProfilerActivity.CPU]):
+            on.train_cycle()
+    assert tracing.summary()["spans"]["learn.mix"]["calls"] >= 1
+    assert_equal(state_of(off), state_of(on))
