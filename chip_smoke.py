@@ -7,18 +7,25 @@ NVIDIA GPU.
 Phases, each printing its seconds:
 
 0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-1. build the env-step kernels, the tile kernel (``csrc/dmfb_step.cu``)
-   and the wide kernel (``csrc/dmfb_step_wide.cu``), with two nvcc runs at
-   once for sm_90a and print each instantiation's registers, spills and
-   shared memory from the ptxas logs; the tile kernel's 4-droplet ones (the
-   main path's) and all four of the wide kernel's (its group and chip
-   layouts, each with and without observations) must not spill;
+1. build the env-step kernels, the tile kernel (``csrc/dmfb_step.cu``),
+   the wide kernel (``csrc/dmfb_step_wide.cu``) and the MEDA kernel
+   (``csrc/meda_step.cu``), with three nvcc runs at once for sm_90a and
+   print each instantiation's registers, spills and shared memory from the
+   ptxas logs; the tile kernel's 4-droplet ones (the main path's), all four
+   of the wide kernel's (its group and chip layouts, each with and without
+   observations) and all three of the MEDA kernel's (v0, v0.1, v0.2) must
+   not spill;
 2. hold the kernel against its plain PyTorch version on the card (integer,
    bool and usage outputs bitwise equal, rewards within 1e-5), with
    observations and without, three chained steps each, at the shapes of
    ``KERNEL_CMP``: each of its 4-, 8- and 16-droplet instantiations at
    20x20 and at 50x50 (the boards of the trained policies and of the
-   degradation sweeps), with and without obstacle blocks;
+   degradation sweeps), with and without obstacle blocks; hold the MEDA
+   kernel against ``envs/meda.step_core`` on the card at the shapes of
+   ``MEDA_KERNEL_CMP`` (80x80-10d and 30x60-4d, fov 19, v0.2 and v0.1),
+   three chained steps on degraded health at B = 2 and B = 4096 (every
+   output bitwise, the team reward within 1e-6), and time it beside the
+   plain step and its byte bound at 80x80-10d v0.2 at both batches;
 3. drive the evaluate entry point (DMFB 10x10, 4 droplets, fov 9, CRNN at
    the evaluation width) on the committed export of the JAX package's
    trained 10x10-4d policy, and check that the env step went through the
@@ -67,11 +74,13 @@ Phases, each printing its seconds:
    beside float32; and 2-epoch x 20-task degradation sweeps on 50x50 of the
    4-droplet policy and of the 10-droplet one, the latter held to JAX's
    mean success over the same epochs of its sweep less ``SUCCESS_SLACK``;
-7. MEDA and QMIX: a full 30x60-4d MEDA episode (T = 90) of the plain
-   PyTorch step on the card against the CPU in v0, v0.1 and v0.2 (integer,
-   bool and observation outputs bitwise, rewards within 1e-6), the step's
-   time at B = 64 and B = 8192 and the MEDA actor's env-steps/s at
-   B = 8192; the JAX package's MEDA VDN policies (30x60 at 2, 3 and 4
+7. MEDA and QMIX: a full 30x60-4d MEDA episode (T = 90) of the card's
+   env step (the MEDA kernel) against the plain step on the CPU in v0,
+   v0.1 and v0.2 at B = 2 and B = 4096 (integer, bool and observation
+   outputs bitwise, rewards and team rewards within 1e-6, one launch a
+   step) and the MEDA actor's env-steps/s at B = 8192 (T launches); every
+   MEDA rollout below launches the MEDA kernel T times and the DMFB
+   kernel never; the JAX package's MEDA VDN policies (30x60 at 2, 3 and 4
    droplets, the 4-droplet seed-12 policy zero-shot on 45x90 and 60x120,
    80x80-10d), MEDA QMIX and DMFB QMIX policies (the last also on 50x50,
    its 20x20 mixer dropped) and the MEDA 30x60-3d VDN policy that the port
@@ -131,8 +140,8 @@ Phases, each printing its seconds:
    cycle and each rank's ring bytes are printed;
 10. the measuring entry points through their ``main``, at their full
    widths with their iteration counts cut (``BENCH_*``): ``bench`` (the
-   actor at B = 16384: DMFB, MEDA and bf16; each DMFB rollout launches the
-   kernel T times), ``bench_train`` at B = 1024 (the cycle that fills the
+   actor at B = 16384: DMFB, MEDA and bf16; each rollout launches its
+   env's kernel T times), ``bench_train`` at B = 1024 (the cycle that fills the
    ring, 10 learner updates, one timed cycle of 512 updates; T launches a
    cycle), ``bench_scaling`` over the visible cards and, where 4 are
    visible, ``bench_multiproc``; each prints its JSON lines, and every
@@ -172,6 +181,7 @@ Phases, each printing its seconds:
 13. JAX's largest configuration, ``train meda --drop_num=10`` (80x80,
    T = 160, batch 128, a 10,000-episode ring, 2 chips a rollout) at the
    CLI's widths, 3 cycles without ``--remat`` and 3 with it, each with
+   the MEDA kernel launched T times a rollout and the DMFB kernel never,
    every loss finite, an update's and a cycle's times and the run's peak
    memory; and the update under ``--remat`` against the one without on
    the card on one minibatch (loss within 1e-5, gradients within 1e-6 of
@@ -182,7 +192,7 @@ The phases run in this order but for phase 8, which runs last: its
 ``torch.profiler`` trace leaves every later launch of the process slower,
 and the phases after it are timed.
 
-The kernel JSON line (both kernels' numbers), a training JSON line, a
+The kernel JSON line (the three kernels' numbers), a training JSON line, a
 trained-policies JSON line, a MEDA/QMIX JSON line, a farm JSON line, a
 mesh JSON line, a bench JSON line (the entry points' lines), a
 learning JSON line and a MEDA 80x80-10d JSON line come before the last,
@@ -224,6 +234,14 @@ KERNEL_CMP = ((10, 4, 0, KERNEL_B), (20, 4, 2, 1024), (20, 5, 0, 1024),
               (20, 10, 0, 1024), (50, 4, 0, 1024), (50, 4, 2, 1024),
               (50, 5, 0, 1024), (50, 10, 0, 1024))
 TIMED_LAUNCHES = 50
+# phase 2, MEDA: (width, length, droplets, observation) held to the plain
+# step, and 80x80-10d v0.2 timed, at each MEDA_KERNEL_B (the training
+# rollouts' batch and meda80.collect's); phase 7 holds whole episodes of
+# the kernel to the CPU's plain step at the same batches
+MEDA_KERNEL_CMP = ((80, 80, 10, "v0.2"), (80, 80, 10, "v0.1"),
+                   (30, 60, 4, "v0.2"), (30, 60, 4, "v0.1"))
+MEDA_KERNEL_B = (2, 4096)
+MEDA_TEAM_ATOL = 1e-6      # a float32 mean of up to 10 rewards, other order
 REWARD_ATOL = 1e-5         # float32 sums of up to 16 rewards, other order
 TRAIN_B = 64               # chips a training rollout (32 updates a cycle)
 TRAIN_STEPS = 7 * TRAIN_B * 40   # >= 7 cycles: >= 224 updates, one sync
@@ -316,16 +334,16 @@ SWEEP = dict(board=50, epochs=2, tasks=20)
 # success.npy, epochs 0-1: 0.94 and 0.93) less SUCCESS_SLACK is its floor
 SWEEP_10D = dict(board=50, epochs=2, tasks=20, export="dmfb_20x20_10d_fov9_vdn")
 SWEEP_10D_JAX = 0.935
-# phase 7: MEDA and QMIX.  The MEDA env on the card against the CPU at
-# MEDA_CMP_B chips (rewards: float32 sums of the same terms, one order);
-# step times at MEDA_TIMED_B; the JAX package's MEDA and QMIX policies held
+# phase 7: MEDA and QMIX.  The MEDA env on the card (the kernel) against
+# the CPU (the plain step) at each MEDA_KERNEL_B (rewards: float32 sums of
+# the same terms, one order); the MEDA actor's rate at MEDA_ACTOR_B chips,
+# one launch a step; the JAX package's MEDA and QMIX policies held
 # to artifacts/README.md's rates less SUCCESS_SLACK; training at the CLI's
 # widths for a few cycles; the QMIX learner on the card against the CPU at
 # a minibatch of QMIX_LEARN_BATCH episodes (the CPU's share of the time);
 # a MEDA sweep
-MEDA_CMP_B = 256
 MEDA_REWARD_ATOL = 1e-6
-MEDA_TIMED_B = (64, 8192)
+MEDA_ACTOR_B = 8192
 MEDA_WALL_STEPS = 20
 MEDA_VDN = "meda_30x60_4d_fov19_vdn"
 MEDA_TRAINED = [
@@ -662,6 +680,107 @@ def compare_kernel(tdmfb, dmfb_step, params, batch, generator,
                     f"{int((x != y).sum())} elements)")
         s = sk
     return worst
+
+
+def degraded_meda_states(tmeda, params, batch, generator):
+    """MEDA chips from ``init`` on electrodes of health uniform in
+    [0.5, 1), their usage boards at integers up to 60, a quarter of the
+    droplets already on their goals and step counts spread over the
+    episode, so that failed moves, snaps, finished droplets and the step
+    limit all occur."""
+    s = tmeda.init(params, batch, generator, "cuda")
+    at_goal = torch.rand((batch, params.n_droplets), generator=generator,
+                         device="cuda") < 0.25
+    return s._replace(
+        status=at_goal,
+        health=torch.rand(s.health.shape, generator=generator,
+                          device="cuda") * 0.5 + 0.5,
+        usage=torch.randint(0, 61, s.usage.shape, generator=generator,
+                            device="cuda").float(),
+        step_count=torch.randint(0, params.max_step, (batch,),
+                                 generator=generator, device="cuda",
+                                 dtype=torch.int32))
+
+
+def meda_step_inputs(params, batch, generator):
+    """Actions in [-1, 10) (those outside [0, 9) move nothing) and
+    move-success draws."""
+    n = params.n_droplets
+    a = torch.randint(-1, 10, (batch, n), generator=generator, device="cuda",
+                      dtype=torch.int32)
+    u = torch.rand((batch, n), generator=generator, device="cuda")
+    return a, u
+
+
+def compare_meda_kernel(tmeda, meda_step, params, batch, generator) -> float:
+    """Three chained steps of the MEDA kernel against the plain
+    ``step_core`` on the card from ``degraded_meda_states``: every state
+    field and output bitwise but the team reward, within
+    ``MEDA_TEAM_ATOL``; returns its largest difference."""
+    ks = ps = degraded_meda_states(tmeda, params, batch, generator)
+    worst = 0.0
+    for t in range(3):
+        a, u = meda_step_inputs(params, batch, generator)
+        before = meda_step.launches
+        ks, ko = meda_step.step_batch(params, ks, a, u)
+        ps, po = tmeda.step_core(params, ps, a, u)
+        torch.cuda.synchronize()
+        if meda_step.launches != before + 1:
+            raise AssertionError("the MEDA step did not launch the kernel")
+        for name, x, y in ([(f, getattr(ks, f), getattr(ps, f))
+                            for f in tmeda.MEDAState._fields]
+                           + [(f, getattr(ko, f), getattr(po, f)) for f in
+                              ("obs", "rewards", "dones", "terminated",
+                               "constraints", "success")]):
+            if not torch.equal(x, y):
+                raise AssertionError(
+                    f"MEDA kernel step {t}: {name} differs from the plain "
+                    f"step ({int((x != y).sum())} elements)")
+        diff = float((ko.team_reward - po.team_reward).abs().max())
+        worst = max(worst, diff)
+        if not diff <= MEDA_TEAM_ATOL:
+            raise AssertionError(f"MEDA kernel step {t}: team reward differs "
+                                 f"by {diff}")
+    return worst
+
+
+def meda_bound_bytes(params, batch) -> int:
+    """Least bytes one MEDA step of ``batch`` chips moves: the usage board
+    read and written, the observations written, one 32-byte sector of
+    health a footprint row (5 a droplet), and the small state read
+    (center, destination, distance, status, action, draw; two counters)
+    and written (center, distance, status, reward, done; six per chip)."""
+    n, wl = params.n_droplets, params.width * params.length
+    obs = params.obs_dim * (1 if params.obs_version == "v0.2" else 4)
+    small = 29 * n + 8 + 18 * n + 21
+    return batch * (8 * wl + n * obs + 5 * 32 * n + small)
+
+
+def time_meda_kernel(tmeda, meda_step, params, batch, generator) -> dict:
+    """Device ms of the MEDA kernel and of the plain step at ``batch``
+    (``device_ms``: a CUDA graph, inputs rotated), the wall ms of chained
+    synchronised calls of each (the host's share at a small batch), and
+    the byte bound at 3.35 TB/s."""
+    sets = [(degraded_meda_states(tmeda, params, batch, generator),
+             *meda_step_inputs(params, batch, generator)) for _ in range(4)]
+    out = {"batch": batch}
+    for name, fn in (("kernel", meda_step.step_batch),
+                     ("plain", tmeda.step_core)):
+        out[f"{name}_ms"] = device_ms(
+            [lambda x=x: fn(params, *x) for x in sets])
+        st = sets[0][0]
+        for _ in range(3):
+            st = fn(params, st, *sets[0][1:])[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MEDA_WALL_STEPS):
+            st = fn(params, st, *sets[i % 4][1:])[0]
+        torch.cuda.synchronize()
+        out[f"{name}_wall_ms"] = ((time.perf_counter() - t0)
+                                  / MEDA_WALL_STEPS * 1e3)
+    out["bound_bytes"] = meda_bound_bytes(params, batch)
+    out["bound_ms"] = out["bound_bytes"] / PEAK_BYTES_PER_S * 1e3
+    return out
 
 
 def greedy_card_vs_cpu(env, net, hidden, chips, seed, worn=False) -> int:
@@ -1043,16 +1162,19 @@ def run_peak_mib(base: int) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
 
 
-def meda_card_vs_cpu(tmeda, smi) -> float:
-    """A full 30x60-4d MEDA episode of ``step_core`` (which observes) on the
-    card and on the CPU from the same chips, actions and draws, in each
-    observation version; half the chips on degraded health.  Integer, bool
-    and observation outputs must be bitwise equal, rewards within
-    ``MEDA_REWARD_ATOL``.  Returns the largest reward difference."""
+def meda_card_vs_cpu(tmeda, meda_step, smi) -> float:
+    """Full 30x60-4d MEDA episodes through the card's env step (the kernel,
+    ``meda_step.step_batch``) and through the plain ``step_core`` on the
+    CPU, from the same chips, actions and draws, in each observation
+    version at each ``MEDA_KERNEL_B``; half the chips on degraded health.
+    State, integer, bool and observation outputs must be bitwise equal,
+    rewards within ``MEDA_REWARD_ATOL``, team rewards within
+    ``MEDA_TEAM_ATOL``, and the kernel launched once a step.  Returns the
+    largest reward difference."""
     worst = 0.0
     g = torch.Generator().manual_seed(707)
-    B = MEDA_CMP_B
-    for version in ("v0", "v0.1", "v0.2"):
+    for B, version in ((B, v) for B in MEDA_KERNEL_B
+                       for v in ("v0", "v0.1", "v0.2")):
         p = tmeda.MEDAParams(obs_version=version, b_degrade=True,
                              per_degrade=1.0)
         cpu = tmeda.init(p, B, g, "cpu")
@@ -1061,14 +1183,14 @@ def meda_card_vs_cpu(tmeda, smi) -> float:
                                       generator=g) * 0.5 + 0.5
         cpu = cpu._replace(health=health)
         card = type(cpu)(*(t.cuda() for t in cpu))
-        snapped = 0
+        before = meda_step.launches
         for t in range(p.episode_limit):
             a = _toward(cpu.center, cpu.dest, torch.rand((B, 4), generator=g),
                         torch.randint(0, 9, (B, 4), generator=g,
                                       dtype=torch.int32))
             u = torch.rand((B, 4), generator=g)
             cpu, oc = tmeda.step_core(p, cpu, a, u)
-            card, og = tmeda.step_core(p, card, a.cuda(), u.cuda())
+            card, og = meda_step.step_batch(p, card, a.cuda(), u.cuda())
             for name, x, y in ([(f, getattr(cpu, f), getattr(card, f))
                                 for f in tmeda.MEDAState._fields]
                                + [(f, getattr(oc, f), getattr(og, f)) for f in
@@ -1076,64 +1198,41 @@ def meda_card_vs_cpu(tmeda, smi) -> float:
                                    "constraints", "success")]):
                 if not torch.equal(x, y.cpu()):
                     raise AssertionError(
-                        f"MEDA {version} step {t}: {name} differs, card vs "
-                        f"CPU ({int((x != y.cpu()).sum())} elements)")
-            diff = float((oc.rewards - og.rewards.cpu()).abs().max())
-            worst = max(worst, diff)
-            if not diff <= MEDA_REWARD_ATOL:
-                raise AssertionError(f"MEDA {version} step {t}: rewards "
-                                     f"differ by {diff}")
-        snapped = int(cpu.status.sum())
+                        f"MEDA {version} B={B} step {t}: {name} differs, "
+                        f"kernel vs CPU ({int((x != y.cpu()).sum())} "
+                        f"elements)")
+            for name, atol in (("rewards", MEDA_REWARD_ATOL),
+                               ("team_reward", MEDA_TEAM_ATOL)):
+                diff = float((getattr(oc, name) - getattr(og, name).cpu())
+                             .abs().max())
+                worst = max(worst, diff)
+                if not diff <= atol:
+                    raise AssertionError(f"MEDA {version} B={B} step {t}: "
+                                         f"{name} differs by {diff}")
+        launched = meda_step.launches - before
+        if launched != p.episode_limit:
+            raise AssertionError(f"MEDA {version} B={B}: {launched} kernel "
+                                 f"launches in {p.episode_limit} steps")
         log(f"phase 7: [{smi}] MEDA 30x60-4d {version}, B={B}, T="
-            f"{p.episode_limit}: card == CPU at every step (rewards max "
-            f"|diff| {worst:.3g}); {snapped} droplets on their goals, "
-            f"usage total {float(cpu.usage.sum())}")
+            f"{p.episode_limit}: kernel on the card == plain step on the CPU "
+            f"at every step, {launched} launches (rewards max |diff| "
+            f"{worst:.3g}); {int(cpu.status.sum())} droplets on their "
+            f"goals, usage total {float(cpu.usage.sum())}")
     return worst
-
-
-def meda_step_times(tmeda, smi) -> dict:
-    """ms per lockstep MEDA step (v0.2, 30x60-4d) on the card: the device
-    time of ``step_core`` (a CUDA graph, ``device_ms``) and the wall time
-    of chained steps (host clock, synchronised), at each ``MEDA_TIMED_B``."""
-    out = {}
-    g = torch.Generator(device="cuda").manual_seed(77)
-    p = tmeda.MEDAParams(obs_version="v0.2")
-    for B in MEDA_TIMED_B:
-        sets = []
-        for _ in range(4):
-            st = tmeda.init(p, B, g, "cuda")
-            a = torch.randint(0, 9, (B, 4), generator=g, device="cuda",
-                              dtype=torch.int32)
-            sets.append((st, a, torch.rand((B, 4), generator=g,
-                                           device="cuda")))
-        dev = device_ms([lambda x=x: tmeda.step_core(p, *x) for x in sets],
-                        iters=20)
-        st = sets[0][0]
-        for _ in range(3):
-            st, _ = tmeda.step_core(p, st, sets[0][1], sets[0][2])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(MEDA_WALL_STEPS):
-            st, _ = tmeda.step_core(p, st, *sets[i % 4][1:])
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / MEDA_WALL_STEPS * 1e3
-        out[B] = dict(device_ms=dev, wall_ms=wall)
-        log(f"phase 7: [{smi}] MEDA step_core v0.2 30x60-4d at B={B}: "
-            f"device {dev:.3f} ms, wall {wall:.3f} ms a lockstep step")
-    return out
 
 
 def train_runs(smi, runs, phase, check=None) -> dict:
     """Each ``(name, CLI, env steps, widths)`` of ``runs`` through the train
     entry point (evaluations at the start and the end, 100 tasks each):
-    the widths it trained at, at least 3 cycles, the DMFB kernel launched T
-    times a rollout (never for MEDA), every loss finite; then an update
+    the widths it trained at, at least 3 cycles, its env's kernel (the
+    DMFB tile kernel or the MEDA kernel) launched T times a rollout and the
+    other never, every loss finite; then an update
     (``time_updates``, with its peak memory) and ``TIMED_CYCLES`` cycles
     timed.  ``check(name, learner, batch)``, where given, runs on each
     run's learner and a minibatch of its ring before the timing.  Returns
     the numbers by name."""
     from marl_dmfb_tpu_torch import train
-    from marl_dmfb_tpu_torch.ops import dmfb_step
+    from marl_dmfb_tpu_torch.ops import dmfb_step, meda_step
     from marl_dmfb_tpu_torch.replay import sample
 
     out = {}
@@ -1145,12 +1244,12 @@ def train_runs(smi, runs, phase, check=None) -> dict:
                        ONE_DEVICE]
         torch.cuda.synchronize()
         base = run_memory_start()
-        dmfb_step.launches = 0
+        dmfb_step.launches = meda_step.launches = 0
         t1 = time.perf_counter()
         trainer = train.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t1
-        launches = dmfb_step.launches
+        launches, launches_meda = dmfb_step.launches, meda_step.launches
         peak = run_peak_mib(base)
         a = trainer.args
         got = (a.hyper_hidden_dim, a.rnn_hidden_dim, a.batch_size,
@@ -1162,9 +1261,12 @@ def train_runs(smi, runs, phase, check=None) -> dict:
                                  f"= {got}, expected {width}")
         cycles, evals = trainer.n_cycles, len(trainer.success_rate)
         T = trainer.env.episode_limit
-        want = T * (cycles + evals) if a.name == "dmfb" else 0
-        if launches != want or evals != 2 or cycles < 3:
-            raise AssertionError(f"{name}: {launches} kernel launches in "
+        want = T * (cycles + evals)
+        if (launches, launches_meda) != ((want, 0) if a.name == "dmfb"
+                                         else (0, want)) \
+                or evals != 2 or cycles < 3:
+            raise AssertionError(f"{name}: {launches} DMFB and "
+                                 f"{launches_meda} MEDA kernel launches in "
                                  f"{cycles} cycles and {evals} evaluations")
         losses = torch.stack(trainer.losses).cpu()
         if not bool(losses.isfinite().all()):
@@ -1185,14 +1287,16 @@ def train_runs(smi, runs, phase, check=None) -> dict:
                          for v in trainer.replay.data.values()) / 2 ** 20
         out[name] = dict(
             cycles=cycles, updates=updates, seconds=seconds,
-            launches=launches, update_ms=update_ms, cycle_ms=cycle_ms,
+            launches=launches, launches_meda=launches_meda,
+            update_ms=update_ms, cycle_ms=cycle_ms,
             peak_mib=peak, update_peak_mib=update_peak,
             replay_mib=replay_mib, remat=bool(a.remat),
             losses=losses.tolist(), success=trainer.success_rate)
         log(f"{phase}: [{smi}] train {' '.join(argv[:4])} ({a.width}x"
             f"{a.length}, T = {T}): {cycles} cycles of B={trainer.B} "
             f"({updates} updates at batch {a.batch_size}) in {seconds:.2f} "
-            f"s, kernel launches {launches}, every loss finite; update "
+            f"s, kernel launches {launches} DMFB, {launches_meda} MEDA, "
+            f"every loss finite; update "
             f"{update_ms:.2f} ms (peak {update_peak:.1f} MiB), cycle "
             f"{cycle_ms:.1f} ms; replay {replay_mib:.1f} MiB, peak memory "
             f"of the run {peak:.1f} MiB; success {trainer.success_rate}")
@@ -1209,17 +1313,16 @@ def meda_qmix(smi) -> dict:
     from marl_dmfb_tpu_torch.config import (get_evaluate_args,
                                             make_env_from_args)
     from marl_dmfb_tpu_torch.envs import meda as tmeda
-    from marl_dmfb_tpu_torch.ops import dmfb_step
+    from marl_dmfb_tpu_torch.ops import dmfb_step, meda_step
     from marl_dmfb_tpu_torch.rollout import make_rollout
     from marl_dmfb_tpu_torch.trainer import Trainer, restore_net_config
 
     t7 = time.perf_counter()
     out = {"phase_s": {}}
 
-    # 1. the MEDA env, card against CPU, and its times
+    # 1. the MEDA env, the kernel against the CPU, and the actor's rate
     t0 = time.perf_counter()
-    out["env_reward_diff"] = meda_card_vs_cpu(tmeda, smi)
-    out["step"] = meda_step_times(tmeda, smi)
+    out["env_reward_diff"] = meda_card_vs_cpu(tmeda, meda_step, smi)
     argv = ["meda", "--drop_num=4", "--evaluate_task=2",
             f"--data_dir={os.path.join(WEIGHTS, MEDA_VDN)}"]
     args = get_evaluate_args(argv)
@@ -1229,19 +1332,23 @@ def meda_qmix(smi) -> dict:
     policy.load_model("final", params_only=True)
     rollout = make_rollout(env, policy.net, args.rnn_hidden_dim)
     g = torch.Generator(device="cuda").manual_seed(8)
-    B = MEDA_TIMED_B[-1]
+    B = MEDA_ACTOR_B
     chips = rollout(env.init(B, g, "cuda"), g, 1.0, 0.0, 0.05).env_states
     torch.cuda.synchronize()
     base = run_memory_start()
-    dmfb_step.launches = 0
+    dmfb_step.launches = meda_step.launches = 0
     t1 = time.perf_counter()
     res = rollout(chips, g, 0.3, 0.0, 0.05)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
-    if dmfb_step.launches:
-        raise AssertionError("the MEDA actor launched the DMFB kernel")
     T = env.episode_limit
-    out["actor"] = dict(B=B, T=T, seconds=dt, env_steps_per_s=B * T / dt,
+    if dmfb_step.launches or meda_step.launches != T:
+        raise AssertionError(f"the MEDA actor launched the DMFB kernel "
+                             f"{dmfb_step.launches} times and the MEDA "
+                             f"kernel {meda_step.launches}, expected 0 and "
+                             f"{T}")
+    out["actor"] = dict(B=B, T=T, launches=T, seconds=dt,
+                        env_steps_per_s=B * T / dt,
                         executed_per_s=int((~res.episodes["padded"]).sum())
                         / dt, peak_mib=run_peak_mib(base),
                         success=float(res.success.float().mean()))
@@ -1249,50 +1356,56 @@ def meda_qmix(smi) -> dict:
         f"B={B}, T={T}: {dt * 1e3:.1f} ms, {B * T / dt:.0f} lockstep "
         f"env-steps/s, {out['actor']['executed_per_s']:.0f} executed, "
         f"peak memory {out['actor']['peak_mib']:.1f} MiB, success "
-        f"{out['actor']['success']:.3f}")
+        f"{out['actor']['success']:.3f}, MEDA kernel launches {T}")
     del chips, res, rollout, policy
     out["phase_s"]["env"] = time.perf_counter() - t0
 
     # 2. the trained policies, greedy over 100 tasks each
     t0 = time.perf_counter()
     out["policies"] = {}
-    launches_eval = 0
+    launches_eval = launches_meda_eval = 0
     for name, export, argv, recorded in MEDA_TRAINED:
         t1 = time.perf_counter()
         tasks = eval_tasks(recorded)
         argv = argv + [f"--evaluate_task={tasks}",
                        f"--data_dir={os.path.join(WEIGHTS, export)}"]
         dmfb_step.launches = dmfb_step.launches_no_obs = 0
+        meda_step.launches = 0
         m = evaluate.main(argv)
-        launches = dmfb_step.launches
+        launches, launches_meda = dmfb_step.launches, meda_step.launches
         a = get_evaluate_args(argv)
         T = make_env_from_args(a).episode_limit
-        want = T if a.name == "dmfb" else 0
-        if launches != want or dmfb_step.launches_no_obs:
-            raise AssertionError(f"{name}: {launches} kernel launches, "
+        want = (T, 0) if a.name == "dmfb" else (0, T)
+        if (launches, launches_meda) != want or dmfb_step.launches_no_obs:
+            raise AssertionError(f"{name}: {launches} DMFB and "
+                                 f"{launches_meda} MEDA kernel launches, "
                                  f"expected {want}")
         launches_eval += launches
+        launches_meda_eval += launches_meda
         floor = recorded - SUCCESS_SLACK
         seconds = time.perf_counter() - t1
         log(f"phase 7: [{smi}] {name} ({export}, {a.width}x{a.length}, "
             f"{a.alg}, {tasks} tasks, T = {T}): success "
             f"{m['success_rate']:.3f} (recorded {recorded:.3f}, floor "
             f"{floor:.3f}), steps {m['steps']:.2f}, reward "
-            f"{m['reward']:.4f}, kernel launches {launches}, "
-            f"{seconds:.2f} s")
+            f"{m['reward']:.4f}, kernel launches {launches} DMFB, "
+            f"{launches_meda} MEDA, {seconds:.2f} s")
         if not m["success_rate"] >= floor - 1e-9:
             raise AssertionError(f"{name}: success {m['success_rate']} "
                                  f"below {floor}")
         out["policies"][name] = dict(m, recorded=recorded, floor=floor,
                                      tasks=tasks, launches=launches,
+                                     launches_meda=launches_meda,
                                      seconds=seconds)
     out["launches_qmix_eval"] = launches_eval
+    out["launches_meda_eval"] = launches_meda_eval
     out["phase_s"]["policies"] = time.perf_counter() - t0
 
     # 3. training at full width, cut in cycles
     t0 = time.perf_counter()
     out["train"] = train_runs(smi, MEDA_QMIX_TRAIN, "phase 7")
     out["launches_qmix_train"] = out["train"]["dmfb_qmix_20x20"]["launches"]
+    out["launches_meda_train"] = out["train"]["meda_vdn_4d"]["launches_meda"]
     out["phase_s"]["train"] = time.perf_counter() - t0
 
     # 4. the QMIX learners on the card against the CPU, MEDA 30x60-3d and
@@ -1319,13 +1432,21 @@ def meda_qmix(smi) -> dict:
     os.makedirs(model)
     shutil.copy(os.path.join(WEIGHTS, MEDA_VDN, "model", "vdn", "fov19",
                              "0_final_state.npz"), model)
-    dmfb_step.launches = 0
+    dmfb_step.launches = meda_step.launches = 0
     res = eva_degrade.main(
         ["meda", "--drop_num=4", f"--evaluate_task={MEDA_SWEEP['tasks']}",
          f"--evaluate_epoch={MEDA_SWEEP['epochs']}", f"--data_dir={data_dir}"])
+    launches_sweep = meda_step.launches
+    want = (MEDA_SWEEP["epochs"] * MEDA_SWEEP["tasks"]
+            * tmeda.MEDAParams().episode_limit)
+    if dmfb_step.launches or launches_sweep != want:
+        raise AssertionError(f"the MEDA sweep launched the DMFB kernel "
+                             f"{dmfb_step.launches} times and the MEDA "
+                             f"kernel {launches_sweep}, expected 0 and "
+                             f"{want}")
     health, usage = res["health"], res["usage"]
     worn = np.diff(health, axis=1) < 0
-    if dmfb_step.launches or (np.diff(health, axis=1) > 0).any() or \
+    if (np.diff(health, axis=1) > 0).any() or \
             ((np.diff(usage, axis=1) < 0) & ~worn).any() or \
             health.shape != (5, MEDA_SWEEP["epochs"], 30, 60):
         raise AssertionError("the MEDA sweep's wear went backwards")
@@ -1336,8 +1457,9 @@ def meda_qmix(smi) -> dict:
         f"success per epoch {per_epoch}, steps per epoch "
         f"{res['steps'].mean(axis=0).tolist()}, cells worn "
         f"{int(worn.sum())}, usage total {float(usage[:, -1].sum())}, "
-        f"{seconds:.2f} s")
-    out["sweep"] = dict(success_per_epoch=per_epoch, seconds=seconds)
+        f"MEDA kernel launches {launches_sweep}, {seconds:.2f} s")
+    out["sweep"] = dict(success_per_epoch=per_epoch, seconds=seconds,
+                        launches=launches_sweep)
     out["phase_s"]["total"] = time.perf_counter() - t7
     log(f"phase 7: {out['phase_s']['total']:.2f} s")
     return out
@@ -2115,11 +2237,13 @@ def bench_entries(smi, T) -> dict:
     ``bench_train``, ``bench_scaling``, and ``bench_multiproc`` where 4
     cards are visible) through their ``main``; each prints its JSON lines,
     each line is checked, and the actor's DMFB rollouts must launch the
-    kernel T times each (T = ``T``).  Raises on a failed check, returns the
-    lines and the launches."""
+    tile kernel T times each (T = ``T``), its MEDA rollouts the MEDA kernel
+    their env's T times.  Raises on a failed check, returns the lines and
+    the launches."""
     from marl_dmfb_tpu_torch import (bench, bench_multiproc, bench_scaling,
                                      bench_train)
-    from marl_dmfb_tpu_torch.ops import dmfb_step
+    from marl_dmfb_tpu_torch.config import make_env_from_args
+    from marl_dmfb_tpu_torch.ops import dmfb_step, meda_step
 
     t10 = time.perf_counter()
     dmfb_step.kernel_library()   # built before the ranks start
@@ -2131,20 +2255,25 @@ def bench_entries(smi, T) -> dict:
         want = {"dmfb": "actor_env_steps_per_sec",
                 "meda": "actor_env_steps_per_sec_meda"}[a.env]
         want += "_bf16" if a.dtype == "bf16" else ""
-        dmfb_step.launches = 0
+        env_T = make_env_from_args(bench.make_args(
+            a.B, a.n_blocks, a.env, a.dtype, a.device)).episode_limit
+        dmfb_step.launches = meda_step.launches = 0
         line = bench_line(bench.main(argv, iters=BENCH_ACTOR_ITERS), want)
         rollouts = BENCH_ACTOR_ITERS + 1
-        launches = dmfb_step.launches
-        if launches != (T * rollouts if a.env == "dmfb" else 0):
+        launches = (dmfb_step.launches if a.env == "dmfb"
+                    else meda_step.launches)
+        other = meda_step.launches if a.env == "dmfb" else dmfb_step.launches
+        if launches != env_T * rollouts or other:
             raise AssertionError(
-                f"phase 10: bench {' '.join(argv)} launched the kernel "
-                f"{launches} times in {rollouts} rollouts of T = {T}")
+                f"phase 10: bench {' '.join(argv)} launched its env's kernel "
+                f"{launches} times in {rollouts} rollouts of T = {env_T}, "
+                f"the other {other}")
         out["lines"].append(line)
         out["launches"][want] = launches
         out["phase_s"][want] = time.perf_counter() - t0
         log(f"phase 10: [{smi}] bench {' '.join(argv)}: {line['value']:.0f} "
-            f"env-steps/s; kernel launches {launches} in {rollouts} "
-            f"rollouts (T = {T} each)")
+            f"env-steps/s; {a.env} kernel launches {launches} in {rollouts} "
+            f"rollouts (T = {env_T} each)")
 
     t0 = time.perf_counter()
     dmfb_step.launches = 0
@@ -2461,8 +2590,9 @@ def main() -> int:
     from marl_dmfb_tpu_torch.replay import sample
     from marl_dmfb_tpu_torch.trainer import Trainer, restore_net_config
     from marl_dmfb_tpu_torch.envs import dmfb as tdmfb
+    from marl_dmfb_tpu_torch.envs import meda as tmeda
     from marl_dmfb_tpu_torch.models.networks import build_agent_net
-    from marl_dmfb_tpu_torch.ops import _build, dmfb_step
+    from marl_dmfb_tpu_torch.ops import _build, dmfb_step, meda_step
     from marl_dmfb_tpu_torch.rollout import make_rollout
 
     t_all = time.perf_counter()
@@ -2477,19 +2607,21 @@ def main() -> int:
         f"({time.perf_counter() - t0:.2f} s)")
     torch.cuda.set_device(0)
 
-    # --- 1: build both kernels, one nvcc each, at once ---
+    # --- 1: build the kernels, one nvcc each, at once ---
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        built, built_wide = pool.map(_build.build,
-                                     ("dmfb_step", "dmfb_step_wide"))
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        built, built_wide, built_meda = pool.map(
+            _build.build, ("dmfb_step", "dmfb_step_wide", "meda_step"))
     dmfb_step.kernel_library()
     dmfb_step.wide_library()
-    for b in (built, built_wide):
+    meda_step.kernel_library()
+    for b in (built, built_wide, built_meda):
         log(f"phase 1: built {os.path.relpath(b.path, ROOT)} in "
             f"{b.seconds:.2f} s of nvcc")
     ptxas = ptxas_summary(built.log)
     ptxas_wide = ptxas_summary(built_wide.log)
-    for entry, info in {**ptxas, **ptxas_wide}.items():
+    ptxas_meda = ptxas_summary(built_meda.log)
+    for entry, info in {**ptxas, **ptxas_wide, **ptxas_meda}.items():
         log(f"  ptxas: {entry}: {info}")
     # the tile kernel's 4-droplet instantiations: with observations (the
     # main path's) and without (the v0.1 path's); neither may spill
@@ -2510,6 +2642,14 @@ def main() -> int:
            or found[0].get("spill_loads") != 0 for found in wide.values()):
         raise AssertionError(f"a wide kernel instantiation spills or was not "
                              f"found in the ptxas log: {wide}")
+    # the MEDA kernel: one instantiation an observation version; none may
+    # spill
+    meda = {v: [info for entry, info in ptxas_meda.items()
+                if f"meda_step_kernelILi{v}E" in entry] for v in range(3)}
+    if any(len(found) != 1 or found[0].get("spill_stores") != 0
+           or found[0].get("spill_loads") != 0 for found in meda.values()):
+        raise AssertionError(f"a MEDA kernel instantiation spills or was not "
+                             f"found in the ptxas log: {meda}")
     log(f"phase 1: {time.perf_counter() - t0:.2f} s")
 
     # --- 2: kernel vs plain version ---
@@ -2526,6 +2666,28 @@ def main() -> int:
             log(f"phase 2: {width}x{width}, {n} droplets, {blocks} blocks, "
                 f"B={batch}, observe={observe}: kernel == plain over 3 "
                 f"steps (max |diff| {err:.3g})")
+    meda_err = 0.0
+    for (width, length, n, version), batch in (
+            (c, b) for c in MEDA_KERNEL_CMP for b in MEDA_KERNEL_B):
+        p = tmeda.MEDAParams(width=width, length=length, n_droplets=n,
+                             obs_version=version, b_degrade=True)
+        err = compare_meda_kernel(tmeda, meda_step, p, batch, g)
+        meda_err = max(meda_err, err)
+        log(f"phase 2: MEDA {width}x{length}-{n}d {version}, degraded, "
+            f"B={batch}: kernel == plain over 3 steps (team reward max "
+            f"|diff| {err:.3g})")
+    meda_timed = {}
+    p = tmeda.MEDAParams(width=80, length=80, n_droplets=10,
+                         obs_version="v0.2")
+    for batch in MEDA_KERNEL_B:
+        x = time_meda_kernel(tmeda, meda_step, p, batch, g)
+        meda_timed[batch] = x
+        log(f"phase 2: [{smi}] MEDA 80x80-10d v0.2 at B={batch}: kernel "
+            f"{x['kernel_ms'] * 1e3:.2f} us device, {x['kernel_wall_ms']:.4f}"
+            f" ms wall; plain {x['plain_ms']:.4f} ms device, "
+            f"{x['plain_wall_ms']:.4f} ms wall; bound {x['bound_bytes']} B, "
+            f"{x['bound_ms'] * 1e3:.2f} us "
+            f"({100 * x['bound_ms'] / x['kernel_ms']:.1f}% of it)")
     log(f"phase 2: {time.perf_counter() - t0:.2f} s")
 
     # --- 3: the evaluate entry point, through the kernel ---
@@ -2829,6 +2991,35 @@ def main() -> int:
         "group": phase11["timed"][0]["group"],
         "ptxas": {f"{layout}_{'obs' if mode else 'no_obs'}":
                   found[0] for (layout, mode), found in wide.items()},
+    }, {
+        "name": "meda_step",
+        "route": "cuda",
+        "source": "marl_dmfb_tpu_torch/csrc/meda_step.cu",
+        "replaces": None,
+        "launches": phase7["actor"]["launches"],
+        "launches_eval": phase7["launches_meda_eval"],
+        "launches_train": phase7["launches_meda_train"],
+        "launches_sweep": phase7["sweep"]["launches"],
+        "launches_train_80x80_10d": {
+            name: run["launches_meda"]
+            for name, run in phase13["train"].items()},
+        "launches_bench_actor":
+            phase10["launches"]["actor_env_steps_per_sec_meda"],
+        "max_abs_err": max(meda_err, phase7["env_reward_diff"]),
+        "batch": MEDA_KERNEL_B[-1],
+        "ms": meda_timed[MEDA_KERNEL_B[-1]]["kernel_ms"],
+        "plain_ms": meda_timed[MEDA_KERNEL_B[-1]]["plain_ms"],
+        "bound_ms": meda_timed[MEDA_KERNEL_B[-1]]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "share_of_bound": (meda_timed[MEDA_KERNEL_B[-1]]["bound_ms"]
+                           / meda_timed[MEDA_KERNEL_B[-1]]["kernel_ms"]),
+        "timed": list(meda_timed.values()),
+        "registers": {version: meda[v][0]["registers"]
+                      for version, v in meda_step.VERSIONS.items()},
+        "ptxas": {version: meda[v][0]
+                  for version, v in meda_step.VERSIONS.items()},
+        "nvcc_s": built_meda.seconds,
     }]}))
     log(json.dumps({"train": {
         "cycles": cycles, "updates": updates,

@@ -20,8 +20,11 @@ the JAX package's per-droplet loop is order-free and :func:`_move_droplets`
 moves all chips and droplets at once.
 
 The JAX package has no Pallas kernel for MEDA: XLA compiled its plain code.
-This module is likewise the MEDA step's only implementation, plain PyTorch
-on whichever device the tensors are on.  Task generation takes an explicit
+:func:`step_core` here is the plain PyTorch version of the port's MEDA step:
+the env registry (``envs/registry.py``) steps through
+``ops/meda_step.step_batch``, which runs this version on CPU tensors and
+the hand CUDA kernel ``csrc/meda_step.cu`` on CUDA tensors, and the tests
+hold the kernel to this version.  Task generation takes an explicit
 ``torch.Generator`` (its numbers differ from a JAX key's), and
 :func:`step_core` takes the move-success draws as an argument so that tests
 can replay the JAX package's.

@@ -3,12 +3,13 @@
 
 ``make_env`` returns an :class:`Env`: functions closed over the static
 params, each taking a batch of B chips.  ``step_core`` is the production env
-step.  For DMFB, on CUDA tensors it launches the hand kernel (for the v0.1
-observation, its no-observation mode, then the plain v0.1 ``observe``), on
-CPU tensors it runs the kernel's plain PyTorch version
-(``ops/dmfb_step.py``).  For MEDA, which the JAX package ran as plain XLA
-code with no Pallas kernel, it is the plain PyTorch step of
-``envs/meda.py`` on either device.
+step, and ``step`` draws the move-success uniforms and calls it.  On CUDA
+tensors it launches a hand kernel, on CPU tensors it runs the kernel's
+plain PyTorch version: for DMFB the kernels of ``ops/dmfb_step.py`` (for
+the v0.1 observation, in their no-observation mode, then the plain v0.1
+``observe``); for MEDA, which the JAX package ran as plain XLA code with
+no Pallas kernel, the kernel of ``ops/meda_step.py`` (every observation
+version), whose plain version is ``envs/meda.step_core``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from marl_dmfb_tpu_torch.envs import dmfb as _dmfb
 from marl_dmfb_tpu_torch.envs import meda as _meda
 from marl_dmfb_tpu_torch.ops import dmfb_step as _dmfb_step
+from marl_dmfb_tpu_torch.ops import meda_step as _meda_step
 
 
 class Env(NamedTuple):
@@ -50,11 +52,15 @@ class Env(NamedTuple):
         return self.params.env_info()
 
 
-def _step(params, state, actions, generator):
-    """``dmfb.step`` through the kernel dispatch."""
-    uniforms = torch.rand(actions.shape, generator=generator,
-                          device=actions.device)
-    return _dmfb_step.step_batch(params, state, actions, uniforms)
+def _drawing(step_batch):
+    """``step`` (the env module's, with draws from ``generator``) through
+    the kernel dispatch ``step_batch``."""
+    def step(params, state, actions, generator):
+        uniforms = torch.rand(actions.shape, generator=generator,
+                              device=actions.device)
+        return step_batch(params, state, actions, uniforms)
+
+    return step
 
 
 _FUNCTIONS = ("init", "reset", "restart", "step", "step_core", "observe",
@@ -81,11 +87,14 @@ def make_env(name: str = "dmfb", version: str | None = None,
         obs_version = {"0.1": "v0.1", "0.2": "v0.2"}.get(version or "", "v0")
     if name == "meda":
         return _bind("meda", _meda,
-                     _meda.MEDAParams(obs_version=obs_version, **kwargs))
+                     _meda.MEDAParams(obs_version=obs_version, **kwargs),
+                     step=_drawing(_meda_step.step_batch),
+                     step_core=_meda_step.step_batch)
     if name != "dmfb":
         raise ValueError(f"unknown env name: {name!r}")
     if obs_version == "v0.2":
         raise ValueError("dmfb has no v0.2 observation")
     return _bind("dmfb", _dmfb,
                  _dmfb.DMFBParams(obs_version=obs_version, **kwargs),
-                 step=_step, step_core=_dmfb_step.step_batch)
+                 step=_drawing(_dmfb_step.step_batch),
+                 step_core=_dmfb_step.step_batch)

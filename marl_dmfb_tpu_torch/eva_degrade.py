@@ -14,7 +14,7 @@ env-step kernel runs at B = 5.  Per epoch the health and usage boards are
 snapshotted, then ``--evaluate_task`` episodes run one after another on the
 same chips: every reset keeps the wear and applies the health decay, so the
 electrodes degrade across episodes and epochs.  A DMFB sweep's env step is
-the kernel at B = 5, a MEDA sweep's the plain PyTorch step; the output is
+the kernel at B = 5, a MEDA sweep's the MEDA kernel; the output is
 labelled ``<W>by<L>-<n>d<b>b`` for both (MEDA has no blocks, ``b`` is 0).  ``--noise_eps`` is a fixed
 epsilon (no anneal; greedy only at 0), for the control sweeps with a
 weakened policy.  ``rewards``, ``steps`` and ``success`` ``(5, epochs)`` and

@@ -32,7 +32,7 @@ import ctypes
 import torch
 
 from marl_dmfb_tpu_torch.envs import dmfb
-from marl_dmfb_tpu_torch.ops import _build
+from marl_dmfb_tpu_torch.ops import _build, check_tensors
 
 launches = 0         # tile kernel launches since import (reset by callers
 launches_no_obs = 0  # that count); of them, no-observation launches
@@ -292,17 +292,7 @@ def _check(params: dmfb.DMFBParams, state: dmfb.DMFBState,
         "actions": (actions, torch.int32, (B, N)),
         "uniforms": (uniforms, torch.float32, (B, N)),
     }
-    device = state.pos.device
-    for name, (t, dtype, shape) in expect.items():
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, pos on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_tensors(expect, state.pos.device, "pos")
 
 
 def _on_card(params: dmfb.DMFBParams, state: dmfb.DMFBState,

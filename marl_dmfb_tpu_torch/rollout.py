@@ -2,7 +2,8 @@
 step) over T steps for B chips (JAX ``rollout.py:37-271``).
 
 The JAX package fused the loop into one ``lax.scan``; here it is a Python
-loop over T whose env step is the hand kernel on CUDA.  Episode semantics
+loop over T whose env step is a hand kernel on CUDA, one launch a step for
+DMFB (``ops/dmfb_step.py``) and for MEDA (``ops/meda_step.py``).  Episode semantics
 are the JAX package's:
 
 * episodes run to ``terminated`` and are then frozen; their remaining

@@ -8,7 +8,7 @@ names.  Per cycle:
 
 * one rollout collects B = ``args.rollout_batch`` episodes, with their
   global states under QMIX; on CUDA a DMFB env step is the hand kernel
-  ``csrc/dmfb_step.cu``, a MEDA one the plain PyTorch step;
+  ``csrc/dmfb_step.cu``, a MEDA one the hand kernel ``csrc/meda_step.cu``;
 * epsilon anneals by B schedule steps per lockstep step ("step"), or by B
   per cycle, clamped ("episode");
 * the episodes go into the replay ring, and the learner takes

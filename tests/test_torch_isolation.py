@@ -146,7 +146,8 @@ def test_cuda_sources_include_no_pytorch_header():
     nvcc builds in seconds: no PyTorch header (those take minutes, and the
     card's machine builds anew on every run)."""
     sources = sorted((ROOT / "marl_dmfb_tpu_torch" / "csrc").glob("*.cu"))
-    assert [p.name for p in sources] == ["dmfb_step.cu", "dmfb_step_wide.cu"]
+    assert [p.name for p in sources] == ["dmfb_step.cu", "dmfb_step_wide.cu",
+                                         "meda_step.cu"]
     for path in sources:
         src = path.read_text()
         includes = re.findall(r"#include\s*[<\"]([^>\"]+)", src)
